@@ -1,0 +1,79 @@
+"""Learner weights carried between the JAX package and the port.
+
+The reference holds a learner as a pytree: ``DDPGState(actor, critic,
+actor_targ, critic_targ, actor_opt, critic_opt, step)`` where each network
+is a list of ``{"w": [fan_in, fan_out], "b": [fan_out]}`` layers and each
+``*_opt`` is ``(ScaleByAdamState(count, mu, nu), ())``. As numpy (what
+``jax.tree_util.tree_map(np.asarray, state)`` and the reference agent's
+``state_dict()["ddpg"]`` hold) that tree converts to the port's flat state
+and back here. The port keeps the reference's ``[fan_in, fan_out]``
+orientation, so no transpose is involved; fields are read by position, so
+the reference's NamedTuples and this module's look-alikes both convert.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.ddpg import DDPGConfig, DDPGState, flatten, unflatten
+from repro_torch.device import resolve_device
+
+
+class AdamStateNumpy(NamedTuple):
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class DDPGStateNumpy(NamedTuple):
+    actor: Any
+    critic: Any
+    actor_targ: Any
+    critic_targ: Any
+    actor_opt: Any
+    critic_opt: Any
+    step: Any
+
+
+def _net_to_torch(net) -> list:
+    return [{k: torch.from_numpy(np.array(layer[k], np.float32))
+             for k in ("w", "b")} for layer in net]
+
+
+def ddpg_state_from_numpy(tree, cfg: DDPGConfig, device=None) -> DDPGState:
+    """The reference learner tree (numpy leaves) as the port's state."""
+    device = resolve_device(device)
+    actor, critic, actor_targ, critic_targ, actor_opt, critic_opt, step = tree
+    a_adam, c_adam = actor_opt[0], critic_opt[0]
+    nets = {"actor": actor, "critic": critic, "actor_targ": actor_targ,
+            "critic_targ": critic_targ, "actor_mu": a_adam[1],
+            "actor_nu": a_adam[2], "critic_mu": c_adam[1],
+            "critic_nu": c_adam[2]}
+    flat = flatten({k: _net_to_torch(v) for k, v in nets.items()}, cfg)
+    counts = torch.tensor([int(np.asarray(a_adam[0])),
+                           int(np.asarray(c_adam[0]))], dtype=torch.int32)
+    return DDPGState(flat.to(device), counts.to(device),
+                     torch.tensor(int(np.asarray(step)),
+                                  dtype=torch.int32, device=device))
+
+
+def ddpg_state_to_numpy(state: DDPGState, cfg: DDPGConfig) -> DDPGStateNumpy:
+    """The port's state as the reference learner tree (numpy leaves)."""
+    nets = unflatten(state.flat.detach().cpu(), cfg)
+
+    def np_net(name):
+        return [{k: layer[k].numpy().copy() for k in ("w", "b")}
+                for layer in nets[name]]
+
+    counts = state.counts.cpu().numpy().astype(np.int32)
+    return DDPGStateNumpy(
+        actor=np_net("actor"), critic=np_net("critic"),
+        actor_targ=np_net("actor_targ"), critic_targ=np_net("critic_targ"),
+        actor_opt=(AdamStateNumpy(counts[0], np_net("actor_mu"),
+                                  np_net("actor_nu")), ()),
+        critic_opt=(AdamStateNumpy(counts[1], np_net("critic_mu"),
+                                   np_net("critic_nu")), ()),
+        step=np.asarray(state.step.cpu().numpy(), np.int32))

@@ -1,0 +1,219 @@
+"""The Magpie tuning loop (paper Fig. 1), host engine.
+
+Components map onto the paper's architecture:
+  Metrics Collector  -> env.apply(config) returning the Table-I metric dict
+  Memory Pool        -> agent.buffer (FIFO replay, §II-D)
+  RL Model           -> agent (DDPG, §II-C; its 96-update learner is the
+                        CUDA kernel ``kernels/csrc/ddpg_learn.cu`` on the card)
+  Controller         -> ParamSpace.to_config + env.apply (restart accounting)
+
+Each tuning step: read state -> policy recommends a full configuration (all m
+parameters at once, §II-B-4) -> apply (restarting workload/DFS, cost tracked) ->
+reward = proportional scalarized performance change -> store -> learn.
+
+Only the reference's ``engine="host"`` loop is ported: one ``env.apply`` per
+step, for any ``TuningEnvironment``. The fused whole-episode engine
+(``engine="scan"``) and the layers that run inside it (deployment
+guardrails, resilience, observation scopes) are ROADMAP items A6 and A10.
+
+The final recommendation is the best configuration *seen* during tuning
+(§III-E: 'it recommends the best it has seen so far'), evaluated with
+``eval_runs`` repetitions (§III-B: 'evaluated ... with three runs').
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core.agent import MagpieAgent
+from repro_torch.core.ddpg import DDPGConfig
+from repro_torch.core.scalarization import Scalarizer, normalize_state
+
+
+@dataclasses.dataclass
+class StepRecord:
+    step: int
+    config: dict
+    metrics: dict
+    objective: float
+    reward: float
+    restart_seconds: float
+    action_seconds: float
+    learn_seconds: float
+
+
+def evaluate_config(env, config: dict, runs: int) -> dict:
+    """Average metrics over ``runs`` long evaluation runs (paper: 30 min x3).
+
+    Shared by ``Tuner`` and ``FleetTuner`` so the evaluation protocol has one
+    source of truth (fleet-of-one parity depends on it). Sums first and
+    divides once — per-run ``v / runs`` accumulation drifts in float and made
+    the mean order-dependent."""
+    acc: dict = {}
+    for _ in range(runs):
+        m = env.apply(config, eval_run=True)
+        for k, v in m.items():
+            acc[k] = acc.get(k, 0.0) + v
+    return {k: v / runs for k, v in acc.items()}
+
+
+def recommend_final(scalarizer: Scalarizer, best_config: dict,
+                    policy_config: dict, evaluate) -> tuple:
+    """§III-E final recommendation, shared by ``Tuner`` and ``FleetTuner``.
+
+    Re-evaluates the best-seen configuration and — since the policy has been
+    fitted to *denoise* observations via the metric state — the policy's own
+    exploit-mode candidate, keeping the better. The paper's plateau behaviour
+    ('recommends the best it has seen so far') is preserved because the policy
+    candidate only replaces best-seen when it truly wins. Returns
+    ``(config, evaluated_metrics, replaced)``.
+    """
+    best_metrics = evaluate(best_config)
+    if policy_config != best_config:
+        policy_metrics = evaluate(policy_config)
+        if (scalarizer.objective(policy_metrics)
+                > scalarizer.objective(best_metrics)):
+            return dict(policy_config), policy_metrics, True
+    return dict(best_config), best_metrics, False
+
+
+@dataclasses.dataclass
+class TuningResult:
+    best_config: dict
+    best_objective: float
+    best_metrics: dict
+    default_config: dict
+    default_metrics: dict
+    history: list
+    simulated_restart_seconds: float
+    wall_seconds: float
+
+    def gain(self, metric: str) -> float:
+        """Proportional raw-metric gain of best vs default (paper's reported %)."""
+        base = self.default_metrics[metric]
+        return (self.best_metrics[metric] - base) / max(base, 1e-9)
+
+
+class Tuner:
+    def __init__(self, env, scalarizer: Scalarizer,
+                 agent: Optional[MagpieAgent] = None,
+                 eval_runs: int = 3, seed: int = 0, engine: str = "host",
+                 policy=None, observation_scopes=None, resilience=None,
+                 device=None):
+        """``agent=None`` sizes a default DDPG agent from the environment's
+        ``ParamSpace`` (``DDPGConfig.for_env``) on ``device`` (``cuda``
+        unless given; without a card the caller must pass ``"cpu"``).
+
+        ``engine`` must be ``"host"``; ``engine="scan"``, ``policy``,
+        ``observation_scopes`` and ``resilience`` belong to the reference's
+        fused episode engine and raise ``NotImplementedError`` here."""
+        if engine not in ("host", "scan"):
+            raise ValueError(f"unknown engine {engine!r}; use 'host' or 'scan'")
+        for name, value, item in (
+                ("engine='scan'", engine == "scan" or None, "A6"),
+                ("policy", policy, "A10"),
+                ("observation_scopes", observation_scopes, "A10"),
+                ("resilience", resilience, "A10")):
+            if value is not None:
+                raise NotImplementedError(
+                    f"Tuner({name}) runs inside the fused episode engine, "
+                    f"ROADMAP item {item}, not yet in repro_torch")
+        self.env = env
+        self.engine = engine
+        self.scalarizer = scalarizer
+        self.agent = agent or MagpieAgent(DDPGConfig.for_env(env), seed=seed,
+                                          device=device)
+        self.eval_runs = eval_runs
+        self.history: list = []
+        self.simulated_restart_seconds = 0.0
+        # Baseline: metrics under the default configuration.
+        self.default_config = env.param_space.default_config()
+        self.default_metrics = self._evaluate(self.default_config, runs=eval_runs)
+        self._cur_config = dict(self.default_config)
+        self._cur_metrics = dict(self.default_metrics)
+        self.best_config = dict(self.default_config)
+        self.best_metrics = dict(self.default_metrics)
+        self.best_objective = scalarizer.objective(self.default_metrics)
+
+    # ------------------------------------------------------------------
+
+    def _evaluate(self, config: dict, runs: int) -> dict:
+        return evaluate_config(self.env, config, runs)
+
+    def _state(self, metrics: dict) -> np.ndarray:
+        return normalize_state(metrics, self.env.metric_specs, self.env.state_metrics)
+
+    def _track_best(self, objective: float, config: dict, metrics: dict) -> None:
+        if objective > self.best_objective:
+            self.best_objective = objective
+            self.best_config = dict(config)
+            self.best_metrics = dict(metrics)
+
+    # ------------------------------------------------------------------
+
+    def run(self, steps: int, learn: bool = True) -> TuningResult:
+        """Run ``steps`` tuning iterations; callable repeatedly (progressive tuning,
+        paper Fig. 7 — the agent, buffer and noise state persist across calls)."""
+        t_wall = time.perf_counter()
+        self._run_host(steps, learn)
+        return self._finish(t_wall)
+
+    def _run_host(self, steps: int, learn: bool) -> None:
+        """The dict-based Fig. 1 loop — one host round trip per step."""
+        start = len(self.history)
+        for i in range(start, start + steps):
+            state = self._state(self._cur_metrics)
+
+            t0 = time.perf_counter()
+            action = self.agent.act(state)
+            config = self.env.param_space.to_config(action)
+            metrics = self.env.apply(config)
+            action_seconds = time.perf_counter() - t0
+
+            restart = self.env.restart_cost(config, self._cur_config)
+            self.simulated_restart_seconds += restart
+
+            next_state = self._state(metrics)
+            reward = self.scalarizer.reward(self._cur_metrics, metrics)
+            objective = self.scalarizer.objective(metrics)
+
+            t0 = time.perf_counter()
+            if learn:
+                self.agent.observe(state, action, reward, next_state)
+                self.agent.learn()
+            learn_seconds = time.perf_counter() - t0
+
+            self._track_best(objective, config, metrics)
+            self.history.append(StepRecord(
+                step=i, config=config, metrics=metrics, objective=objective,
+                reward=reward, restart_seconds=restart,
+                action_seconds=action_seconds, learn_seconds=learn_seconds,
+            ))
+            self._cur_config = config
+            self._cur_metrics = metrics
+
+    def _finish(self, t_wall: float) -> TuningResult:
+        """§III-E final recommendation + result assembly (shared by engines)."""
+        policy_action = self.agent.act(self._state(self._cur_metrics), explore=False)
+        policy_config = self.env.param_space.to_config(policy_action)
+        config, best_metrics, replaced = recommend_final(
+            self.scalarizer, self.best_config, policy_config,
+            lambda c: self._evaluate(c, runs=self.eval_runs))
+        if replaced:
+            self.best_config = config
+            self.best_metrics = dict(best_metrics)
+            self.best_objective = self.scalarizer.objective(best_metrics)
+        return TuningResult(
+            best_config=dict(self.best_config),
+            best_objective=self.scalarizer.objective(best_metrics),
+            best_metrics=best_metrics,
+            default_config=dict(self.default_config),
+            default_metrics=dict(self.default_metrics),
+            history=list(self.history),
+            simulated_restart_seconds=self.simulated_restart_seconds,
+            wall_seconds=time.perf_counter() - t_wall,
+        )

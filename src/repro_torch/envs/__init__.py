@@ -1,0 +1,23 @@
+from repro_torch.envs.base import TuningEnvironment
+from repro_torch.envs.metrics import (
+    LUSTRE_STATE_METRICS,
+    MetricsCollector,
+    couple_client_knobs,
+    lustre_metric_specs,
+)
+from repro_torch.envs.workloads import WORKLOADS, Workload
+from repro_torch.envs.lustre_sim import (
+    LustreSimEnv,
+    LustreSimV2,
+    batch_mean_performance,
+    extended_param_space,
+    magpie8_param_space,
+    paper_param_space,
+)
+
+__all__ = [
+    "TuningEnvironment", "MetricsCollector", "lustre_metric_specs",
+    "LUSTRE_STATE_METRICS", "couple_client_knobs", "WORKLOADS", "Workload",
+    "LustreSimEnv", "LustreSimV2", "batch_mean_performance",
+    "paper_param_space", "extended_param_space", "magpie8_param_space",
+]

@@ -1,0 +1,23 @@
+"""Kernel dispatch: a CUDA tensor goes to the hand-written kernel, a CPU
+tensor to the kernel's plain PyTorch version. There are no modes and no
+environment variables; the tensor's device decides, and a CUDA tensor never
+falls back to the plain version."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.ddpg import DDPGConfig, DDPGState
+from repro_torch.kernels.ddpg_learn import ddpg_learn, ddpg_learn_plain
+
+
+def ddpg_inner_loop(state: DDPGState, batches: tuple, *,
+                    cfg: DDPGConfig) -> torch.Tensor:
+    """All U DDPG updates of N sessions (``kernels.ddpg_learn``): updates
+    ``state`` in place, returns the metrics ``[N, U, 3]``."""
+    device = state.flat.device
+    if device.type == "cuda":
+        return ddpg_learn(state, batches, cfg=cfg)
+    if device.type == "cpu":
+        return ddpg_learn_plain(state, batches, cfg=cfg)
+    raise ValueError(f"no DDPG learner for device {device}")

@@ -1,0 +1,90 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``repro``, and the port's entry points
+refuse to run without a card unless the caller asks for the CPU."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules() -> list:
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT / "src").with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_no_source_file_imports_jax_or_repro():
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_importing_everything_loads_neither_jax_nor_repro():
+    """In a fresh interpreter with no card visible: import every module of
+    the port and everything the packages expose; then a ``Tuner`` built
+    without ``device=`` must raise, and one on the CPU must work."""
+    code = f"""
+import importlib, sys
+mods = {_port_modules()!r}
+for name in mods:
+    mod = importlib.import_module(name)
+    for attr in getattr(mod, "__all__", []):
+        getattr(mod, attr)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+from repro_torch.core import Scalarizer, Tuner
+from repro_torch.envs import LustreSimEnv
+env = LustreSimEnv("seq_write")
+scal = Scalarizer(weights={{"throughput": 1.0}}, specs=env.metric_specs)
+try:
+    Tuner(env, scal)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("Tuner without a card and without device= ran")
+Tuner(env, scal, eval_runs=1, device="cpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result without a
+    card, and alone in a directory without the repository."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for script in (ROOT / "chip_smoke.py", alone):
+        out = subprocess.run([sys.executable, str(script)], env=env,
+                             capture_output=True, text=True, timeout=120,
+                             cwd=script.parent)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
