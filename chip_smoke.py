@@ -6,29 +6,64 @@
 Run from the root of a checkout on a machine with a CUDA card, the CUDA
 toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
 
-  1. device   the card's name and count, and ``nvidia-smi``'s name and power
-              limit;
-  2. build    every CUDA source of ``src/repro_torch/kernels/csrc`` compiled
-              (one ``nvcc`` per source, all started together);
-  3. check    the ``ddpg_learn`` kernel against its plain PyTorch version at
-              N = 1 and N = 1024 sessions on the 2-D and 8-D spaces, from
-              independent ``ddpg_init`` states and minibatches gathered from
-              a 64-row replay: Adam counts and steps exact, the median and
-              90th-percentile session errors within ``RTOL`` and
-              ``RTOL_P90``, and two launches on the same inputs bitwise
-              equal;
-  4. tune     the main path, ``Tuner(engine="host")``, 30 steps on
-              ``LustreSimEnv("seq_write")`` (2-D) and on ``LustreSimV2``
-              (8-D), with the kernel's launch count read around each run; the
-              first steps are replayed on the CPU through the plain learner
-              and must make the same decisions;
-  5. timing   CUDA-event medians of the kernel and the plain version at
-              N = 1 and N = 1024, beside the bound from the shapes.
+  1. device       the card's name and count, and ``nvidia-smi``'s name and
+                  power limit;
+  2. build        every CUDA source of ``src/repro_torch/kernels/csrc``
+                  compiled (one ``nvcc`` per source, all started together);
+  3. check        the ``ddpg_learn`` kernel against its plain PyTorch version
+                  at N = 1 and N = 1024 sessions on the 2-D and 8-D spaces,
+                  from independent ``ddpg_init`` states and minibatches
+                  gathered from a 64-row replay: Adam counts and steps exact,
+                  the median and 90th-percentile session errors within
+                  ``RTOL`` and ``RTOL_P90``, and two launches on the same
+                  inputs bitwise equal;
+  4. check_episode the ``episode_learn`` kernel against its plain version,
+                  T = 30 steps of N = 1 and N = 64 independent sessions on
+                  both spaces (each session its own env seed, agent seed,
+                  warmup plan and OU noise): two launches bitwise equal, the
+                  warmup decisions equal, per session the first step whose
+                  decisions differ, and the median and 90th-percentile
+                  session errors of the trace before that step within
+                  ``EP_RTOL`` and ``EP_RTOL_P90``; the learner and replay
+                  window after the episode, over the sessions whose
+                  decisions never differ, are reported (``--drift`` below
+                  says why they are not held). Then the learner held: T = 2
+                  warmup steps of N = 64 sessions whose windows start with
+                  63 random rows (the gathers reach all 64 rows, the FIFO
+                  wraps), the learner state after the 192 updates and the
+                  window within ``LEARN_RTOL``/``LEARN_RTOL_P90`` and
+                  ``WINDOW_RTOL``/``WINDOW_RTOL_P90``;
+  5. tune         ``Tuner(engine="host")``, 30 steps on
+                  ``LustreSimEnv("seq_write")`` (2-D) and on ``LustreSimV2``
+                  (8-D), with the kernel's launch count read around each run;
+                  the first steps are replayed on the CPU through the plain
+                  learner and must make the same decisions;
+  6. tune_scan    the main path, ``Tuner(engine="scan")``, 30 steps in ONE
+                  ``run()`` call on the same two environments as
+                  ``ModelEnv``s: ``episode_learn`` must launch exactly once;
+                  a CPU replay of 10 steps through the plain version must
+                  make the same decisions through the warmup and at least
+                  the first step after it, and the replay windows' rows of
+                  the warmup steps must agree within ``TUNE_WINDOW_RTOL``
+                  (the rows of the later agreeing steps are reported);
+  7. timing       CUDA-event medians of both kernels and their plain versions
+                  at N = 1 and N = 1024 (the episode's plain version at N = 1
+                  only), the episode's pre-draw timed apart, beside the bound
+                  from the shapes.
 
 Then the ``{"kernels": [...]}`` line, ``nvidia-smi``'s line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
+
+    python3 chip_smoke.py --drift
+
+instead builds the kernels and prints, after each of 30 steps of 64
+sessions per space, how far the learner and the replay window of the
+episode kernel and of the plain version on the CPU are from the plain
+version on the card, over the sessions whose decisions agree so far: the
+learning itself amplifies rounding, so the learner is held at T = 30 by
+neither.
 """
 
 from __future__ import annotations
@@ -51,6 +86,35 @@ ROOT = pathlib.Path(__file__).resolve().parent
 #: other on the CPU too (PERF.md, "Parity bounds").
 RTOL = 1e-5
 RTOL_P90 = 1e-4
+#: episode kernel vs plain version, per session: the largest
+#: max|kernel - plain| / max|plain| over the trace (metrics, rewards,
+#: objectives) at the steps before the first differing decision. The median
+#: session must stay within EP_RTOL and the 90th percentile within
+#: EP_RTOL_P90 (measured on an H100: median 1.1e-7, p90 1.8e-7, worst
+#: 3.0e-7; PERF.md).
+EP_RTOL = 1e-6
+EP_RTOL_P90 = 1e-5
+#: the learner held: LEARN_STEPS steps of 64 sessions whose windows start
+#: with LEARN_PREFILL random rows; per session the largest
+#: max|kernel - plain| / max|plain| over the learner's tensors after the
+#: episode (median within LEARN_RTOL, p90 within LEARN_RTOL_P90) and over
+#: the window's s, a, r, s2 (WINDOW_RTOL, WINDOW_RTOL_P90). Measured on an
+#: H100: learner median 5.9e-6 / 8.5e-6 (2-D / 8-D), p90 3.6e-5 / 3.5e-5;
+#: the plain version on the CPU is as far from the plain version on the
+#: card (PERF.md). Longer episodes are not held: the learning amplifies
+#: rounding (``--drift``).
+LEARN_STEPS = 2
+LEARN_PREFILL = 63
+LEARN_RTOL = 1e-4
+LEARN_RTOL_P90 = 1e-3
+WINDOW_RTOL = 1e-6
+WINDOW_RTOL_P90 = 1e-5
+#: the scan tuner on the card vs its CPU replay: the largest
+#: max|card - cpu| / max|cpu| over the replay windows' s, a, r, s2 rows of
+#: the warmup steps
+TUNE_WINDOW_RTOL = 1e-5
+EP_STEPS = 30
+WARMUP_STEPS = 8
 #: published H100 SXM peaks (FP32 FLOP/s, HBM3 bytes/s)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -112,8 +176,6 @@ def compare(state, metrics, ref_state, ref_metrics, cfg) -> dict:
     error over sessions and the largest absolute difference."""
     import torch
 
-    from repro_torch.core.ddpg import unflatten
-
     if not torch.equal(state.counts, ref_state.counts):
         raise AssertionError("Adam counts differ from the plain version")
     if not torch.equal(state.step, ref_state.step):
@@ -121,22 +183,170 @@ def compare(state, metrics, ref_state, ref_metrics, cfg) -> dict:
     if not (bool(torch.isfinite(state.flat).all())
             and bool(torch.isfinite(metrics).all())):
         raise AssertionError("kernel produced a non-finite value")
-    got, want = unflatten(state.flat, cfg), unflatten(ref_state.flat, cfg)
-    pairs = [(g[key], w[key]) for name in got
-             for g, w in zip(got[name], want[name]) for key in ("w", "b")]
+    pairs = learner_pairs(state.flat, ref_state.flat, cfg)
     pairs += [(metrics[..., j], ref_metrics[..., j]) for j in range(3)]
-    n = state.flat.shape[0]
-    rel = torch.zeros(n, dtype=torch.float64, device=state.flat.device)
+    rel, abs_err = session_errors(pairs)
+    return {"max_abs_err": abs_err, **quantiles(rel)}
+
+
+def learner_pairs(flat, ref_flat, cfg) -> list:
+    """(got, want) of each w and b of the learner's eight parameter sets."""
+    from repro_torch.core.ddpg import unflatten
+
+    got, want = unflatten(flat, cfg), unflatten(ref_flat, cfg)
+    return [(g[key], w[key]) for name in got
+            for g, w in zip(got[name], want[name]) for key in ("w", "b")]
+
+
+def session_errors(pairs) -> tuple:
+    """Per session (the leading axis), the largest ``max|a - b| / max|b|``
+    over the pairs, as a float64 tensor; and the largest ``|a - b|``."""
+    import torch
+
+    n = pairs[0][1].shape[0]
+    rel = torch.zeros(n, dtype=torch.float64, device=pairs[0][1].device)
     abs_err = 0.0
     for g, w in pairs:
         diff = (g - w).abs().reshape(n, -1).amax(dim=1).double()
         scale = w.abs().reshape(n, -1).amax(dim=1).double().clamp_min(1e-30)
         rel = torch.maximum(rel, diff / scale)
         abs_err = max(abs_err, float(diff.max()))
+    return rel, abs_err
+
+
+def quantiles(rel, prefix: str = "") -> dict:
+    """Median, 90th percentile and maximum of per-session errors."""
+    import torch
+
     q = torch.quantile(rel, torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64,
                                          device=rel.device)).tolist()
-    return {"max_abs_err": abs_err, "median_rel_err": q[0],
-            "p90_rel_err": q[1], "max_rel_err": q[2]}
+    return {f"{prefix}median_rel_err": q[0], f"{prefix}p90_rel_err": q[1],
+            f"{prefix}max_rel_err": q[2]}
+
+
+def episode_inputs(space: str, n: int, seed: int, device, steps=EP_STEPS,
+                   prefill: int = 0):
+    """Operands of N independent sessions' first episode on one space:
+    session i has env seed and agent seed ``seed + i``, its own warmup plan
+    and OU noise, a fresh learner, a 64-row replay window holding
+    ``prefill`` random transitions (empty by default) and the normalized
+    default-config metrics as its starting state."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DDPGConfig, MagpieAgent, Scalarizer
+    from repro_torch.core.ddpg import DDPGState
+    from repro_torch.core.episode import BufferState, EpisodeCarry, \
+        _consume_exploration
+    from repro_torch.core.scalarization import metric_bounds, \
+        normalize_state
+    from repro_torch.envs import LustreSimEnv, LustreSimV2
+    from repro_torch.envs.lustre_model import LustreEnvState
+    from repro_torch.kernels.episode_learn import EpisodeKernelSpec, \
+        EpisodeOperands
+
+    env_cls = LustreSimEnv if space == "2d" else LustreSimV2
+    envs = [env_cls("seq_write", seed=seed + i).to_model_env(device=device)
+            for i in range(n)]
+    cfg = DDPGConfig.for_env(envs[0])
+    agents = [MagpieAgent(cfg, seed=seed + i, buffer_capacity=CAPACITY,
+                          device=device) for i in range(n)]
+    scal = Scalarizer(weights={"throughput": 1.0},
+                      specs=envs[0].metric_specs)
+    lo, span = metric_bounds(envs[0].metric_specs, envs[0].state_metrics)
+    w_vec = scal.weight_vector(envs[0].state_metrics)
+    starts = [env.apply(env.param_space.default_config(), eval_run=True)
+              for env in envs]
+    xs = [_consume_exploration(a, steps) for a in agents]
+
+    def stack(rows, dtype=torch.float32):
+        return torch.as_tensor(np.stack(rows), dtype=dtype, device=device)
+
+    k, m = cfg.state_dim, cfg.action_dim
+    rng = np.random.default_rng(seed)
+    window = [rng.random((n, CAPACITY, k)), rng.random((n, CAPACITY, m)),
+              rng.standard_normal((n, CAPACITY)) * 0.1,
+              rng.random((n, CAPACITY, k))]
+    live = np.arange(CAPACITY) < prefill
+    carry = EpisodeCarry(
+        env_state=LustreEnvState(
+            key=torch.stack([e.model_state.key for e in envs]),
+            warmth=torch.stack([e.model_state.warmth for e in envs]),
+            last_values=torch.stack([e.model_state.last_values
+                                     for e in envs])),
+        ddpg=DDPGState(*(torch.stack(x).contiguous()
+                         for x in zip(*[a.state for a in agents]))),
+        buffer=BufferState(
+            *(stack(x * live.reshape((1, CAPACITY) + (1,) * (x.ndim - 2)))
+              for x in window),
+            torch.full((n,), prefill % CAPACITY, dtype=torch.int32,
+                       device=device),
+            torch.full((n,), prefill, dtype=torch.int32, device=device)),
+        learn_key=torch.stack([a._learn_key for a in agents]).to(device),
+        state_vec=stack([normalize_state(m_, envs[0].metric_specs,
+                                         envs[0].state_metrics)
+                         for m_ in starts]),
+        objective=stack([np.float32(scal.objective(m_)) for m_ in starts]))
+    op = EpisodeOperands(
+        use_warmup=stack([x[0] for x in xs], torch.bool),
+        warmup=stack([x[1] for x in xs]), noise=stack([x[2] for x in xs]),
+        w_vec=stack([w_vec] * n), lo=stack([lo] * n), span=stack([span] * n),
+        params=torch.stack([e.params.vector() for e in envs]).contiguous(),
+        carry=carry)
+    spec = EpisodeKernelSpec(model=envs[0].model, cfg=cfg, learn=True,
+                             num_updates=cfg.updates_per_step)
+    return op, spec
+
+
+def clone_tree(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return type(x)(*(clone_tree(y) for y in x))
+
+
+def tree_equal(a, b) -> bool:
+    import torch
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(tree_equal(x, y) for x, y in zip(a, b))
+
+
+def compare_episode(trace, ref) -> dict:
+    """Per session, the first step whose knob indices differ (T when none)
+    and the largest ``max|a - b| / max|b|`` over the trace's float fields
+    at the steps before it; quantiles over sessions."""
+    import torch
+
+    n, steps = ref.rewards.shape
+    same = (trace.action_idx == ref.action_idx).all(dim=-1)  # [N, T]
+    first = torch.where(same.all(dim=1), torch.full((n,), steps,
+                                                    device=same.device),
+                        (~same).int().argmax(dim=1))
+    errs = []
+    for i in range(n):
+        f = int(first[i])
+        err = 0.0
+        for a, b in ((trace.metrics, ref.metrics),
+                     (trace.rewards, ref.rewards),
+                     (trace.objectives, ref.objectives)):
+            a, b = a[i, :f].double(), b[i, :f].double()
+            if a.numel():
+                err = max(err, float((a - b).abs().max()
+                                     / b.abs().max().clamp_min(1e-30)))
+        errs.append(err)
+    firsts = first.tolist()
+    return {"first_differing_step": firsts,
+            "sessions_never_differing": sum(f == steps for f in firsts),
+            "min_first_differing_step": min(firsts),
+            **quantiles(torch.tensor(errs, dtype=torch.float64)),
+            "max_abs_err": max(
+                float((a[i, :firsts[i]] - b[i, :firsts[i]]).abs().max())
+                if firsts[i] else 0.0
+                for i in range(n)
+                for a, b in ((trace.metrics, ref.metrics),
+                             (trace.rewards, ref.rewards),
+                             (trace.objectives, ref.objectives)))}
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +386,234 @@ def phase_check(configs) -> dict:
             for key in worst:
                 worst[key] = max(worst[key], err[key])
     return worst
+
+
+def compare_carry(carry, ref, cfg, held) -> dict:
+    """The learner state and the replay window after the episode, kernel
+    against plain, over the sessions ``held`` (a bool [N]): quantiles over
+    them of each session's largest ``max|a - b| / max|b|`` over the
+    learner's tensors, and over the window's s, a, r, s2."""
+    import torch
+
+    if not torch.equal(carry.buffer.size, ref.buffer.size):
+        raise AssertionError("episode replay sizes differ from the plain "
+                             "version")
+    learner, _ = session_errors([
+        (g[held], w[held])
+        for g, w in learner_pairs(carry.ddpg.flat, ref.ddpg.flat, cfg)])
+    window, _ = session_errors([
+        (g[held], w[held]) for g, w in zip(carry.buffer[:4], ref.buffer[:4])])
+    return {"held_sessions": int(held.sum()),
+            **quantiles(learner, "learner_"), **quantiles(window, "window_")}
+
+
+def phase_check_episode() -> dict:
+    import torch
+
+    from repro_torch.kernels.episode_learn import episode_learn, \
+        episode_learn_plain
+
+    worst = {"max_abs_err": 0.0, "median_rel_err": 0.0, "p90_rel_err": 0.0,
+             "max_rel_err": 0.0, "learner_median_rel_err": 0.0,
+             "learner_p90_rel_err": 0.0, "window_median_rel_err": 0.0,
+             "window_p90_rel_err": 0.0}
+    for space in ("2d", "8d"):
+        for steps, n, prefill in ((EP_STEPS, 1, 0), (EP_STEPS, 64, 0),
+                                  (LEARN_STEPS, 64, LEARN_PREFILL)):
+            op, spec = episode_inputs(space, n, seed=300, device="cuda",
+                                      steps=steps, prefill=prefill)
+            k1, k2, p = clone_tree(op), clone_tree(op), clone_tree(op)
+            t1 = episode_learn(k1, spec=spec)
+            t2 = episode_learn(k2, spec=spec)
+            tp = episode_learn_plain(p, spec=spec)
+            torch.cuda.synchronize()
+            bitwise = tree_equal(t1, t2) and tree_equal(k1, k2)
+            if not bitwise:
+                raise AssertionError("two episode launches on the same "
+                                     "inputs differ")
+            if not all(bool(torch.isfinite(x).all())
+                       for x in (t1.metrics, t1.rewards, k1.carry.ddpg.flat)):
+                raise AssertionError("episode kernel produced a non-finite "
+                                     "value")
+            for name, a, b in (("counts", k1.carry.ddpg.counts,
+                                p.carry.ddpg.counts),
+                               ("step", k1.carry.ddpg.step,
+                                p.carry.ddpg.step),
+                               ("cursors", k1.carry.buffer.next_slot,
+                                p.carry.buffer.next_slot),
+                               ("env key", k1.carry.env_state.key,
+                                p.carry.env_state.key),
+                               ("learn key", k1.carry.learn_key,
+                                p.carry.learn_key)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"episode {name} differ from the "
+                                         f"plain version")
+            err = compare_episode(t1, tp)
+            held = torch.tensor(err["first_differing_step"],
+                                device=t1.rewards.device) == steps
+            if bool(held.any()):
+                err.update(compare_carry(k1.carry, p.carry, spec.cfg, held))
+            held_learner = prefill > 0
+            emit({"phase": "check_episode", "space": space, "sessions": n,
+                  "steps": steps, "prefilled_rows": prefill,
+                  "bitwise_repeat": bitwise, "rtol": EP_RTOL,
+                  "rtol_p90": EP_RTOL_P90, "learner_held": held_learner,
+                  **err})
+            where = f"({space}, T={steps}, N={n})"
+            if err["min_first_differing_step"] < min(steps, WARMUP_STEPS):
+                raise AssertionError(f"a warmup decision differs from the "
+                                     f"plain version {where}")
+            if err["median_rel_err"] > EP_RTOL or \
+                    err["p90_rel_err"] > EP_RTOL_P90:
+                raise AssertionError(
+                    f"episode kernel vs plain: session errors median "
+                    f"{err['median_rel_err']} (bound {EP_RTOL}), p90 "
+                    f"{err['p90_rel_err']} (bound {EP_RTOL_P90}) {where}")
+            if held_learner:
+                for part, med_tol, p90_tol in (
+                        ("learner", LEARN_RTOL, LEARN_RTOL_P90),
+                        ("window", WINDOW_RTOL, WINDOW_RTOL_P90)):
+                    med = err[f"{part}_median_rel_err"]
+                    p90 = err[f"{part}_p90_rel_err"]
+                    if med > med_tol or p90 > p90_tol:
+                        raise AssertionError(
+                            f"episode kernel vs plain: {part} after the "
+                            f"episode, median {med} (bound {med_tol}), p90 "
+                            f"{p90} (bound {p90_tol}) {where}")
+                for key in worst:
+                    worst[key] = max(worst[key], err[key])
+            else:
+                for key in ("max_abs_err", "median_rel_err", "p90_rel_err",
+                            "max_rel_err"):
+                    worst[key] = max(worst[key], err[key])
+    return worst
+
+
+def phase_drift() -> None:
+    """Per step of 30, for 64 sessions per space: the learner's and the
+    window's median and 90th-percentile session errors of the episode
+    kernel (``kernel_*``) and of the plain version on the CPU (``cpu_*``),
+    each against the plain version on the card, over the sessions whose
+    decisions have agreed with it so far. The episode runs as 30 launches
+    of one step, which continue the same carry."""
+    import torch
+
+    from repro_torch.kernels.episode_learn import episode_learn, \
+        episode_learn_plain
+
+    def one_step(op, t):
+        return op._replace(**{name: getattr(op, name)[:, t:t + 1]
+                              .contiguous()
+                              for name in ("use_warmup", "warmup", "noise")})
+
+    n = 64
+    for space in ("2d", "8d"):
+        op, spec = episode_inputs(space, n, seed=300, device="cuda")
+        runs = {"kernel": (clone_tree(op), episode_learn),
+                "cpu": (tree_map(lambda x: x.cpu(), op),
+                        episode_learn_plain)}
+        plain = clone_tree(op)
+        agree = {name: torch.ones_like(op.carry.objective,
+                                       dtype=torch.bool) for name in runs}
+        for t in range(EP_STEPS):
+            want = episode_learn_plain(one_step(plain, t), spec=spec)
+            row = {"phase": "drift", "space": space, "step": t + 1}
+            for name, (x, fn) in runs.items():
+                got = fn(one_step(x, t), spec=spec)
+                agree[name] &= (got.action_idx.cuda()
+                                == want.action_idx).all(dim=-1)[:, 0]
+                held = agree[name]
+                if not bool(held.any()):
+                    continue
+                carry = tree_map(lambda v: v.cuda(), x.carry)
+                err = compare_carry(carry, plain.carry, spec.cfg, held)
+                row.update({f"{name}_{key}": v for key, v in err.items()
+                            if "median" in key or "p90" in key
+                            or key == "held_sessions"})
+            emit(row)
+
+
+def phase_tune_scan(space: str, steps: int) -> dict:
+    from repro_torch.core import Scalarizer, Tuner
+    from repro_torch.envs import LustreSimEnv, LustreSimV2
+    from repro_torch.kernels.ddpg_learn import ddpg_learn
+    from repro_torch.kernels.episode_learn import episode_learn
+
+    env_cls = LustreSimEnv if space == "2d" else LustreSimV2
+
+    def tuner(device):
+        env = env_cls("seq_write", seed=0).to_model_env(device=device)
+        scal = Scalarizer(weights={"throughput": 1.0}, specs=env.metric_specs)
+        return Tuner(env, scal, seed=0, engine="scan", device=device)
+
+    import torch
+
+    gpu = tuner(None)
+    torch.cuda.synchronize()
+    episode_learn.launches = 0
+    ddpg_learn.launches = 0
+    t0 = time.perf_counter()
+    result = gpu.run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = episode_learn.launches
+    if launches != 1 or ddpg_learn.launches != 0:
+        raise AssertionError(f"{space}: one run() launched episode_learn "
+                             f"{launches} times and ddpg_learn "
+                             f"{ddpg_learn.launches} times")
+    for rec in result.history:
+        if not all(math.isfinite(v) for v in rec.metrics.values()):
+            raise AssertionError(f"{space}: non-finite metrics")
+    gain = result.gain("throughput")
+    if not math.isfinite(gain) or gain <= 0:
+        raise AssertionError(f"{space}: tuning did not improve throughput "
+                             f"({gain})")
+    replay_steps = 10
+    cpu_tuner = tuner("cpu")
+    cpu = cpu_tuner.run(replay_steps)
+    gpu_cfgs = [h.config for h in result.history[:replay_steps]]
+    cpu_cfgs = [h.config for h in cpu.history]
+    same = next((i for i, (a, b) in enumerate(zip(gpu_cfgs, cpu_cfgs))
+                 if a != b), replay_steps)
+    if same <= WARMUP_STEPS:
+        raise AssertionError(f"{space}: decisions differ from the CPU replay "
+                             f"at step {same}, in the warmup or at the first "
+                             f"step after it")
+    # step t wrote row t of both windows; after the warmup the actions
+    # carry the learner's drift, so only the warmup rows are held
+    gpu_rows, _ = gpu.agent.buffer.storage()
+    cpu_rows, _ = cpu_tuner.agent.buffer.storage()
+
+    def rows_rel(steps):
+        rel, _ = session_errors([(g[None, :steps],
+                                  c.to(g.device)[None, :steps])
+                                 for g, c in zip(gpu_rows, cpu_rows)])
+        return float(rel[0])
+
+    warmup_rel, agreeing_rel = rows_rel(WARMUP_STEPS), rows_rel(same)
+    if warmup_rel > TUNE_WINDOW_RTOL:
+        raise AssertionError(f"{space}: replay window rows of the warmup "
+                             f"differ from the CPU replay's by {warmup_rel} "
+                             f"(bound {TUNE_WINDOW_RTOL})")
+    default_rel = max(
+        abs(result.default_metrics[key] - cpu.default_metrics[key])
+        / max(abs(cpu.default_metrics[key]), 1e-30)
+        for key in cpu.default_metrics)
+    out = {"phase": "tune_scan", "space": space, "steps": steps,
+           "run_calls": 1, "kernel_launches": launches,
+           "default_throughput": result.default_metrics["throughput"],
+           "tuned_throughput": result.best_metrics["throughput"],
+           "gain": gain, "best_config": result.best_config,
+           "wall_seconds": wall,
+           "step_seconds": result.history[0].action_seconds,
+           "default_metrics_max_rel_diff_vs_cpu": default_rel,
+           "cpu_replay_steps": replay_steps,
+           "configs_equal_to_cpu_through_step": same,
+           "warmup_rows_rel_err_vs_cpu": warmup_rel,
+           "window_rtol": TUNE_WINDOW_RTOL,
+           "agreeing_rows_rel_err_vs_cpu": agreeing_rel}
+    emit(out)
+    return out
 
 
 def phase_tune(space: str, steps: int) -> dict:
@@ -292,6 +730,67 @@ def phase_timing(configs, smi: str) -> list:
     return rows
 
 
+def phase_timing_episode(smi: str) -> list:
+    """CUDA-event times of one ``episode_learn`` launch (its pre-draw timed
+    apart) at N = 1 and N = 1,024 sessions, of the plain version at N = 1,
+    and the bound from ``work()``. The N = 1,024 operands tile 64
+    independent sessions 16 times."""
+    import torch
+
+    from repro_torch.kernels import episode_learn as el
+
+    rows = []
+    for space in ("2d", "8d"):
+        base, spec = episode_inputs(space, 64, seed=400, device="cuda")
+        for n in (1, SEED_SESSIONS):
+            reps = max(1, n // 64)
+            op = tree_map(lambda x: x[:n].repeat(
+                reps, *([1] * (x.dim() - 1))).contiguous(), base)
+            t = op.use_warmup.shape[1]
+            plain_op = clone_tree(op)
+            # predraw advances the keys in place: one fresh copy per call,
+            # made before the timed calls
+            fresh = [clone_tree(op) for _ in range(4)]
+            predraw_ms = time_ms(lambda: el.predraw(fresh.pop(), spec), 3,
+                                 warmup=1)
+            draws = el.predraw(op, spec)
+            before = el.episode_learn.launches
+            # repeated launches continue the same sessions' state: the
+            # same work per launch
+            kernel_ms = time_ms(lambda: el.launch(op, spec, *draws),
+                                5 if n == 1 else 3, warmup=1)
+            el.episode_learn.launches = before  # timing launches not counted
+            plain_ms = None
+            if n == 1:
+                plain_ms = time_ms(
+                    lambda: el.episode_learn_plain(plain_op, spec=spec), 1,
+                    warmup=0)
+            w = el.work(spec.cfg, n, t, CAPACITY, spec.model.n_samples)
+            flops_ms = w["flops"] / PEAK_F32_FLOPS * 1e3
+            bytes_ms = w["bytes"] / PEAK_BYTES * 1e3
+            row = {"phase": "timing", "kernel": "episode_learn",
+                   "space": space, "sessions": n, "steps": t,
+                   "updates": spec.num_updates, "ms": kernel_ms,
+                   "predraw_ms": predraw_ms, "plain_ms": plain_ms,
+                   "bound_ms": max(flops_ms, bytes_ms),
+                   "bound_by": "operations" if flops_ms >= bytes_ms
+                   else "bytes",
+                   "flops": w["flops"], "bytes": w["bytes"],
+                   "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
+                   "ms_per_step": kernel_ms / t,
+                   "library_ms": None, "card": smi}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def tree_map(fn, x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    return type(x)(*(tree_map(fn, y) for y in x))
+
+
 def main() -> int:
     try:
         import torch
@@ -326,14 +825,24 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in log.items()}})
 
+    if sys.argv[1:] == ["--drift"]:
+        phase_drift()
+        return 0
     configs = {"2d": DDPGConfig(state_dim=12, action_dim=2),
                "8d": DDPGConfig(state_dim=12, action_dim=8)}
     err = phase_check(configs)
+    ep_err = phase_check_episode()
     tunes = [phase_tune("2d", 30), phase_tune("8d", 30)]
+    scans = [phase_tune_scan("2d", EP_STEPS), phase_tune_scan("8d", EP_STEPS)]
     rows = phase_timing(configs, smi)
+    ep_rows = phase_timing_episode(smi)
 
     main_row = next(r for r in rows
                     if r["space"] == "2d" and r["sessions"] == SEED_SESSIONS)
+    ep_row = next(r for r in ep_rows
+                  if r["space"] == "2d" and r["sessions"] == SEED_SESSIONS)
+    ep_plain = next(r for r in ep_rows
+                    if r["space"] == "2d" and r["sessions"] == 1)
     emit({"kernels": [{
         "name": "ddpg_learn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ddpg_learn.cu",
@@ -344,7 +853,23 @@ def main() -> int:
         "p90_rel_err": err["p90_rel_err"], "max_rel_err": err["max_rel_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None, "sessions": SEED_SESSIONS, "ok": True}]})
+        "library_ms": None, "sessions": SEED_SESSIONS, "ok": True}, {
+        "name": "episode_learn", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/episode_learn.cu",
+        "replaces": "src/repro/kernels/episode_fused.py:266",
+        "launches": sum(t["kernel_launches"] for t in scans),
+        "max_abs_err": ep_err["max_abs_err"],
+        "median_rel_err": ep_err["median_rel_err"],
+        "p90_rel_err": ep_err["p90_rel_err"],
+        "max_rel_err": ep_err["max_rel_err"],
+        "learner_median_rel_err": ep_err["learner_median_rel_err"],
+        "learner_p90_rel_err": ep_err["learner_p90_rel_err"],
+        "window_median_rel_err": ep_err["window_median_rel_err"],
+        "window_p90_rel_err": ep_err["window_p90_rel_err"],
+        "ms": ep_row["ms"], "plain_ms": ep_plain["plain_ms"],
+        "plain_sessions": 1, "bound_ms": ep_row["bound_ms"],
+        "bound_by": ep_row["bound_by"], "library_ms": None,
+        "sessions": SEED_SESSIONS, "steps": EP_STEPS, "ok": True}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

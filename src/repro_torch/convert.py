@@ -1,4 +1,5 @@
-"""Learner weights carried between the JAX package and the port.
+"""Learner weights and episode state carried between the JAX package and
+the port.
 
 The reference holds a learner as a pytree: ``DDPGState(actor, critic,
 actor_targ, critic_targ, actor_opt, critic_opt, step)`` where each network
@@ -9,6 +10,11 @@ is a list of ``{"w": [fan_in, fan_out], "b": [fan_out]}`` layers and each
 and back here. The port keeps the reference's ``[fan_in, fan_out]``
 orientation, so no transpose is involved; fields are read by position, so
 the reference's NamedTuples and this module's look-alikes both convert.
+
+The episode engine's other state converts the same way, from numpy: the
+Lustre model's env state (uint32 key words, warmth, last values) and
+parameters, and the replay window (``BufferState``). With these both
+packages can step from the same state.
 """
 
 from __future__ import annotations
@@ -77,3 +83,46 @@ def ddpg_state_to_numpy(state: DDPGState, cfg: DDPGConfig) -> DDPGStateNumpy:
         critic_opt=(AdamStateNumpy(counts[1], np_net("critic_mu"),
                                    np_net("critic_nu")), ()),
         step=np.asarray(state.step.cpu().numpy(), np.int32))
+
+
+def key_from_numpy(key, device=None) -> torch.Tensor:
+    """A threefry key (uint32 words ``[..., 2]``) as the port's int64 words."""
+    return torch.as_tensor(np.asarray(key).astype(np.uint32).astype(np.int64),
+                           device=resolve_device(device))
+
+
+def env_state_from_numpy(tree, device=None):
+    """The reference's ``LustreEnvState(key, warmth, last_values)`` (numpy
+    leaves, any leading axes) as the port's."""
+    from repro_torch.envs.lustre_model import LustreEnvState
+
+    key, warmth, last_values = tree
+    device = resolve_device(device)
+    return LustreEnvState(
+        key=key_from_numpy(key, device),
+        warmth=torch.as_tensor(np.array(warmth, np.float32), device=device),
+        last_values=torch.as_tensor(np.array(last_values, np.float32),
+                                    device=device))
+
+
+def lustre_params_from_numpy(tree, device=None):
+    """The reference's ``LustreParams`` (numpy leaves, fields in order)."""
+    from repro_torch.envs.lustre_model import LustreParams
+
+    device = resolve_device(device)
+    return LustreParams(*(torch.as_tensor(np.array(x, np.float32),
+                                          device=device) for x in tree))
+
+
+def buffer_from_numpy(tree, device=None):
+    """The reference's replay window ``BufferState(s, a, r, s2, next_slot,
+    size)`` (numpy leaves) as the port's float32 / int32 tensors."""
+    from repro_torch.core.episode import BufferState
+
+    device = resolve_device(device)
+    s, a, r, s2, next_slot, size = tree
+    floats = [torch.as_tensor(np.array(x, np.float32), device=device)
+              for x in (s, a, r, s2)]
+    ints = [torch.as_tensor(np.array(x, np.int32), device=device)
+            for x in (next_slot, size)]
+    return BufferState(*floats, *ints)

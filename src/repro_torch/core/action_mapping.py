@@ -141,6 +141,23 @@ class ParamSpec:
         """Forward map (used to seed the buffer with known configs)."""
         return float(self.to_unit_batch([value])[0])
 
+    def values_from_indices(self, idx: np.ndarray) -> list:
+        """Quantization indices -> native parameter values (the index
+        ``from_unit_batch`` would land on, as ``coord_maps``' ``idx``
+        computes it). Quantized kinds only."""
+        idx = np.asarray(idx)
+        if self.kind == "continuous":
+            raise ValueError(
+                f"{self.name}: continuous parameters have no index space")
+        if self.kind == "discrete":
+            return (idx.astype(int) + int(self.minimum)).tolist()
+        if self.kind == "boolean":
+            return [bool(i) for i in idx]
+        if self.kind == "log2_int":
+            e_lo = self._log2_span()[0]
+            return [int(2 ** (e_lo + int(i))) for i in idx]
+        return [self.values[int(i)] for i in idx]
+
     # -- validation ----------------------------------------------------------
 
     def validate(self, value) -> bool:
@@ -217,6 +234,41 @@ class ParamSpace:
     def validate(self, config: dict) -> bool:
         return all(s.validate(config[s.name]) for s in self.specs)
 
+    # -- compact (index) trace support ---------------------------------------
+
+    @property
+    def is_quantized(self) -> bool:
+        """True when every parameter has finitely many values: the episode
+        engine and the pure env models need it (``coord_maps``)."""
+        return all(s.cardinality is not None for s in self.specs)
+
+    def index_dtype(self) -> np.dtype:
+        """Smallest unsigned dtype holding every knob's quantization index.
+        Indices are computed in float32 (``coord_maps``), exact only up to
+        2**24, so a larger knob is an error, not a wider dtype."""
+        if not self.is_quantized:
+            raise ValueError("continuous spaces have no index trace encoding")
+        top = max(s.cardinality - 1 for s in self.specs)
+        if top > 2 ** 24:
+            raise ValueError(
+                f"knob cardinality {top + 1} exceeds the exact-integer range "
+                f"of the float32 index computation (2**24); the compact "
+                f"index trace cannot represent this space losslessly")
+        for dt in (np.uint8, np.uint16):
+            if top <= np.iinfo(dt).max:
+                return np.dtype(dt)
+        return np.dtype(np.uint32)
+
+    def configs_from_indices(self, idx: np.ndarray) -> list:
+        """[N, m] quantization indices -> N config dicts (the inverse of
+        ``coord_maps``' ``idx``)."""
+        idx = np.asarray(idx)
+        if idx.ndim != 2 or idx.shape[1] != self.dim:
+            raise ValueError(f"indices shape {idx.shape} != (N, {self.dim})")
+        columns = [s.values_from_indices(idx[:, j])
+                   for j, s in enumerate(self.specs)]
+        return [dict(zip(self.names, row)) for row in zip(*columns)]
+
     def grid_axes(self, points_per_dim: int) -> list:
         """Per-dimension unit grids, capped at each parameter's cardinality.
 
@@ -238,3 +290,111 @@ class ParamSpace:
         mesh = np.meshgrid(*self.grid_axes(points_per_dim), indexing="ij")
         flat = np.stack([m.reshape(-1) for m in mesh], axis=-1)
         return self.to_configs(flat)
+
+
+def _fma(a, b: float, c: float):
+    """float32 ``a * b + c`` rounded once, as XLA's CPU backend contracts
+    the reference's quantization expressions (``b`` and ``c`` are float32
+    constants folded from the Python expression)."""
+    import torch
+
+    from repro_torch.random import _fma_f32
+
+    def const(x):
+        return torch.tensor(x, dtype=torch.float32, device=a.device)
+
+    return _fma_f32(a, const(b), const(c))
+
+
+def _recip(d: float) -> float:
+    """float32 ``1 / d``: XLA compiles a division by a constant as a
+    product with its rounded reciprocal."""
+    return float(np.float32(1.0 / d))
+
+
+def coord_maps(space: ParamSpace) -> list:
+    """Per-coordinate torch versions of the paper's inverse action map, the
+    twin of the reference's ``jax_coord_maps``.
+
+    Returns one ``fn(a) -> dict`` per parameter; ``a`` is a float32 tensor
+    of unit coordinates of any shape, and every value returned is a float32
+    tensor of that shape. Keys:
+
+      value  decoded parameter value (booleans as 0/1)
+      idx    quantization index (a float32 integer)
+      q      canonical unit coordinate of the decoded value
+      log2   log2(value) where meaningful (log2_int, and list kinds whose
+             values are all powers of two); absent otherwise
+
+    Rounding follows the reference's compiled code: ``a * span + lo + 0.5``
+    is one fused multiply-add ``fma(a, span, lo + 0.5)``, and ``q`` is the
+    index times the rounded reciprocal of the span. Only quantized kinds are
+    supported (``ParamSpace.is_quantized``).
+    """
+    import torch
+
+    maps = []
+    for spec in space.specs:
+        if spec.cardinality is None:
+            raise ValueError(
+                f"{spec.name}: continuous parameters have no exact in-graph "
+                "quantization; use the host tuning engine for this space")
+
+        def make(spec=spec):
+            card = spec.cardinality
+
+            def table(values):
+                return lambda idx: torch.tensor(
+                    values, dtype=torch.float32,
+                    device=idx.device)[idx.long()]
+
+            if spec.kind == "boolean":
+                def fn(a):
+                    idx = (a >= 0.5).to(torch.float32)
+                    return {"value": idx, "idx": idx, "q": idx}
+                return fn
+            if spec.kind == "discrete":
+                lo, hi = float(spec.minimum), float(spec.maximum)
+
+                def fn(a):
+                    v = torch.clamp(torch.floor(_fma(a, hi - lo, lo + 0.5)),
+                                    lo, hi)
+                    idx = v - lo
+                    return {"value": v, "idx": idx,
+                            "q": idx * _recip(max(1.0, hi - lo))}
+                return fn
+            if spec.kind == "log2_int":
+                e_lo, e_hi = spec._log2_span()
+                values = table([float(2 ** e)
+                                for e in range(e_lo, e_hi + 1)])
+
+                def fn(a):
+                    idx = torch.clamp(torch.floor(_fma(a, e_hi - e_lo, 0.5)),
+                                      0, e_hi - e_lo)
+                    return {"value": values(idx), "idx": idx,
+                            "q": idx * _recip(max(1, e_hi - e_lo)),
+                            "log2": idx + e_lo}
+                return fn
+            try:
+                values = table([float(v) for v in spec.values])
+            except (TypeError, ValueError) as e:
+                raise ValueError(
+                    f"{spec.name}: in-graph maps need numeric values") from e
+            log2_values = None
+            if all(float(v) > 0 and float(v).is_integer() and _is_pow2(v)
+                   for v in spec.values):
+                log2_values = table([float(int(v).bit_length() - 1)
+                                     for v in spec.values])
+
+            def fn(a):
+                idx = torch.clamp(torch.floor(_fma(a, card - 1, 0.5)), 0,
+                                  card - 1)
+                out = {"value": values(idx), "idx": idx,
+                       "q": idx * _recip(max(1, card - 1))}
+                if log2_values is not None:
+                    out["log2"] = log2_values(idx)
+                return out
+            return fn
+
+        maps.append(make())
+    return maps

@@ -52,6 +52,16 @@ class ReplayBuffer:
         ``size``); ``size`` restricts sampling to valid rows."""
         return (self._s, self._a, self._r, self._s2), self._size
 
+    def set_storage(self, s, a, r, s2, next_slot: int, size: int) -> None:
+        """Write back storage that the episode engine advanced on the
+        device (it keeps the FIFO window for a whole episode and syncs it
+        here once)."""
+        for dst, v in ((self._s, s), (self._a, a), (self._r, r),
+                       (self._s2, s2)):
+            dst.copy_(torch.as_tensor(v, dtype=torch.float32))
+        self._next = int(next_slot)
+        self._size = int(size)
+
     def state_dict(self) -> dict:
         """Host copies, for checkpoint/resume of a tuning session."""
         return {"s": self._s.cpu().numpy(), "a": self._a.cpu().numpy(),

@@ -48,6 +48,15 @@ def normalize_state(metrics: Mapping[str, float], specs: Mapping[str, MetricSpec
     return np.array([specs[name].norm(metrics[name]) for name in order], np.float32)
 
 
+def metric_bounds(specs: Mapping[str, MetricSpec], order: list) -> tuple:
+    """(lo, span) float32 arrays in state order: the episode engine's view
+    of the normalization bounds. ``span`` is 0 for degenerate specs (norm ->
+    0)."""
+    lo = np.array([specs[name].minimum for name in order], np.float32)
+    hi = np.array([specs[name].maximum for name in order], np.float32)
+    return lo, hi - lo
+
+
 @dataclasses.dataclass(frozen=True)
 class Scalarizer:
     """Linear scalarization of the optimization objectives.
@@ -63,6 +72,18 @@ class Scalarizer:
         missing = set(self.weights) - set(self.specs)
         if missing:
             raise KeyError(f"objective weights without metric specs: {missing}")
+
+    def weight_vector(self, order: list) -> np.ndarray:
+        """Weights as a float32 vector over the state order (zeros
+        elsewhere): what the episode engine folds against the normalized
+        state. Raises if a weighted metric is not part of the state order."""
+        outside = set(self.weights) - set(order)
+        if outside:
+            raise KeyError(
+                f"objective metrics {outside} are not state metrics; the "
+                f"episode engine reads objectives off the state vector")
+        return np.array([_F32(self.weights.get(name, 0.0)) for name in order],
+                        np.float32)
 
     def objective(self, metrics: Mapping[str, float]) -> float:
         """G(P) = sum_i w_i * norm(P_i), accumulated in float32 in specs order.

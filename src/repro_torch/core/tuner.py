@@ -1,4 +1,5 @@
-"""The Magpie tuning loop (paper Fig. 1), host engine.
+"""The Magpie tuning loop (paper Fig. 1): the host engine and the scan
+(whole-episode) engine.
 
 Components map onto the paper's architecture:
   Metrics Collector  -> env.apply(config) returning the Table-I metric dict
@@ -11,10 +12,13 @@ Each tuning step: read state -> policy recommends a full configuration (all m
 parameters at once, §II-B-4) -> apply (restarting workload/DFS, cost tracked) ->
 reward = proportional scalarized performance change -> store -> learn.
 
-Only the reference's ``engine="host"`` loop is ported: one ``env.apply`` per
-step, for any ``TuningEnvironment``. The fused whole-episode engine
-(``engine="scan"``) and the layers that run inside it (deployment
-guardrails, resilience, observation scopes) are ROADMAP items A6 and A10.
+``engine="host"`` runs one ``env.apply`` per step, for any
+``TuningEnvironment``. ``engine="scan"`` needs a ``ModelEnv`` and runs each
+``run()`` call as one episode (``core.episode.run_episode_scan``): on the
+card ONE launch of the CUDA kernel ``kernels/csrc/episode_learn.cu``, on
+the CPU its plain PyTorch version. The layers the reference runs inside the
+episode (deployment guardrails, resilience, observation scopes) are ROADMAP
+item A10.
 
 The final recommendation is the best configuration *seen* during tuning
 (§III-E: 'it recommends the best it has seen so far'), evaluated with
@@ -108,20 +112,25 @@ class Tuner:
         ``ParamSpace`` (``DDPGConfig.for_env``) on ``device`` (``cuda``
         unless given; without a card the caller must pass ``"cpu"``).
 
-        ``engine`` must be ``"host"``; ``engine="scan"``, ``policy``,
-        ``observation_scopes`` and ``resilience`` belong to the reference's
-        fused episode engine and raise ``NotImplementedError`` here."""
+        ``engine``: "host" (dict loop, any environment) or "scan" (one
+        episode call per ``run()``; needs a ``ModelEnv`` on the agent's
+        device). ``policy``, ``observation_scopes`` and ``resilience``
+        belong to the reference's guarded, masked and self-healing episode
+        bodies and raise ``NotImplementedError`` here (ROADMAP A10)."""
         if engine not in ("host", "scan"):
             raise ValueError(f"unknown engine {engine!r}; use 'host' or 'scan'")
-        for name, value, item in (
-                ("engine='scan'", engine == "scan" or None, "A6"),
-                ("policy", policy, "A10"),
-                ("observation_scopes", observation_scopes, "A10"),
-                ("resilience", resilience, "A10")):
+        if engine == "scan" and getattr(env, "model", None) is None:
+            raise ValueError(
+                "engine='scan' needs a pure-model environment (ModelEnv); "
+                "real-DFS/external environments must use engine='host'")
+        for name, value in (("policy", policy),
+                            ("observation_scopes", observation_scopes),
+                            ("resilience", resilience)):
             if value is not None:
                 raise NotImplementedError(
-                    f"Tuner({name}) runs inside the fused episode engine, "
-                    f"ROADMAP item {item}, not yet in repro_torch")
+                    f"Tuner({name}) runs inside the reference's guarded, "
+                    f"masked or resilient episode body, ROADMAP item A10, "
+                    f"not yet in repro_torch")
         self.env = env
         self.engine = engine
         self.scalarizer = scalarizer
@@ -159,7 +168,10 @@ class Tuner:
         """Run ``steps`` tuning iterations; callable repeatedly (progressive tuning,
         paper Fig. 7 — the agent, buffer and noise state persist across calls)."""
         t_wall = time.perf_counter()
-        self._run_host(steps, learn)
+        if self.engine == "scan":
+            self._run_scan(steps, learn)
+        else:
+            self._run_host(steps, learn)
         return self._finish(t_wall)
 
     def _run_host(self, steps: int, learn: bool) -> None:
@@ -195,6 +207,39 @@ class Tuner:
             ))
             self._cur_config = config
             self._cur_metrics = metrics
+
+    def _run_scan(self, steps: int, learn: bool) -> None:
+        """The episode engine: one episode call for all ``steps``, then the
+        ``StepRecord`` history reconstructed from its trace."""
+        from repro_torch.core.episode import run_episode_scan
+        start = len(self.history)
+        t0 = time.perf_counter()
+        trace = run_episode_scan(self.env, self.agent, self.scalarizer,
+                                 self._cur_metrics, steps, learn=learn)
+        per_step = (time.perf_counter() - t0) / max(1, steps)
+
+        configs = self.env.param_space.configs_from_indices(trace.action_idx)
+        names = self.env.state_metrics
+        prev_config = self._cur_config
+        for t in range(steps):
+            metrics = {n: float(v) for n, v in zip(names, trace.metrics[t])}
+            objective = float(trace.objectives[t])
+            restart = float(trace.restarts[t])
+            self.simulated_restart_seconds += restart
+            if restart > 0:  # adapter-side restart log (scope bookkeeping)
+                self.env.restart_events.append(
+                    (self.env._scope(configs[t], prev_config), restart))
+            self._track_best(objective, configs[t], metrics)
+            self.history.append(StepRecord(
+                step=start + t, config=configs[t], metrics=metrics,
+                objective=objective, reward=float(trace.rewards[t]),
+                restart_seconds=restart, action_seconds=per_step,
+                learn_seconds=0.0,
+            ))
+            prev_config = configs[t]
+            self._cur_config = configs[t]
+            self._cur_metrics = metrics
+        self.env._last_config = dict(self._cur_config)
 
     def _finish(self, t_wall: float) -> TuningResult:
         """§III-E final recommendation + result assembly (shared by engines)."""

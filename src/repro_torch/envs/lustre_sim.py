@@ -435,17 +435,25 @@ class LustreSimEnv(TuningEnvironment):
     # pure-model twin (the whole-episode engine's env core) ---------------
 
     def as_model(self):
-        """The reference's pure-model twin of this environment is not
-        ported yet: ROADMAP item A5 (pure env models) brings it."""
-        raise NotImplementedError(
-            "LustreSimEnv.as_model: the pure env model is ROADMAP item A5, "
-            "not yet in repro_torch; use the host engine")
+        """The pure-function twin of this environment: same parameter space,
+        workload, surface and metric coupling as ``EnvModel`` torch functions
+        (``envs.lustre_model.LustreSimModel``). Its noise has the same
+        structure draw for draw but flows through a threefry key instead of
+        this instance's numpy Generator: a model of the same system, not a
+        replay of this instance's stream."""
+        from repro_torch.envs.lustre_model import LustreSimModel
+        return LustreSimModel(
+            self.workload.name, space=self.param_space,
+            dfs_scope=type(self).DFS_SCOPE,
+            run_seconds=self.run_seconds, sample_period=self.sample_period)
 
-    def to_model_env(self, seed: int = None):
-        """See ``as_model``: ROADMAP item A5."""
-        raise NotImplementedError(
-            "LustreSimEnv.to_model_env: the pure env model is ROADMAP item "
-            "A5, not yet in repro_torch; use the host engine")
+    def to_model_env(self, seed: int = None, device=None):
+        """``ModelEnv`` host adapter over ``as_model()`` on ``device``
+        (``cuda`` unless given)."""
+        from repro_torch.envs.base import ModelEnv
+        return ModelEnv(self.as_model(),
+                        seed=self._seed if seed is None else seed,
+                        device=device)
 
     # convenience for tests / benchmarks ---------------------------------
 

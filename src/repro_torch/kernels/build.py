@@ -7,8 +7,9 @@ seconds without PyTorch's headers:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so
 
-The library name carries a hash of the source, so an edited kernel is never
-served from a stale build. Libraries go to ``build/kernels/`` at the root of
+The library name carries a hash of the source and of every header it
+includes (``#include "..."`` from ``csrc/``, followed recursively), so an
+edited kernel or shared header is never served from a stale build. Libraries go to ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``). ``build_all`` starts one ``nvcc``
 per source at once and waits for all of them; ``load`` builds one on demand.
 Nothing here runs at import time.
@@ -20,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -53,10 +55,30 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def dependencies(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly or
+    through another header, in first-seen order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in dependencies(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict:

@@ -9,6 +9,8 @@ import torch
 
 from repro_torch.core.ddpg import DDPGConfig, DDPGState
 from repro_torch.kernels.ddpg_learn import ddpg_learn, ddpg_learn_plain
+from repro_torch.kernels.episode_learn import EpisodeKernelSpec, \
+    EpisodeOperands, episode_learn, episode_learn_plain
 
 
 def ddpg_inner_loop(state: DDPGState, batches: tuple, *,
@@ -21,3 +23,15 @@ def ddpg_inner_loop(state: DDPGState, batches: tuple, *,
     if device.type == "cpu":
         return ddpg_learn_plain(state, batches, cfg=cfg)
     raise ValueError(f"no DDPG learner for device {device}")
+
+
+def episode_inner_loop(operands: EpisodeOperands, *,
+                       spec: EpisodeKernelSpec):
+    """N sessions' whole T-step episodes (``kernels.episode_learn``):
+    updates ``operands.carry`` in place, returns the trace."""
+    device = operands.carry.ddpg.flat.device
+    if device.type == "cuda":
+        return episode_learn(operands, spec=spec)
+    if device.type == "cpu":
+        return episode_learn_plain(operands, spec=spec)
+    raise ValueError(f"no episode kernel for device {device}")

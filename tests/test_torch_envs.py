@@ -80,9 +80,15 @@ def test_scalarizer_and_normalize_state_equal():
             t_sc.normalize_state(m, t_specs, env.state_metrics))
 
 
-def test_pure_model_twin_is_not_ported_yet():
-    env = t_ls.LustreSimEnv("seq_write")
-    with pytest.raises(NotImplementedError, match="A5"):
-        env.as_model()
-    with pytest.raises(NotImplementedError, match="A5"):
-        env.to_model_env()
+def test_pure_model_twin_is_ported():
+    """``as_model``/``to_model_env`` give the torch model and its adapter
+    (parity with the reference in tests/test_torch_env_model.py)."""
+    from repro_torch.envs.lustre_model import LustreSimModel
+
+    env = t_ls.LustreSimV2("seq_write")
+    assert isinstance(env.as_model(), LustreSimModel)
+    assert env.as_model().dfs_scope == ("service_threads", "checksums")
+    menv = env.to_model_env(device="cpu")
+    metrics = menv.apply(env.param_space.default_config())
+    assert list(metrics) == env.state_metrics
+    assert all(np.isfinite(list(metrics.values())))

@@ -23,6 +23,18 @@ def _port_modules() -> list:
     return mods
 
 
+def test_the_scan_engine_slice_is_covered():
+    """The import checks below walk every module of the port, the scan
+    engine's included."""
+    mods = _port_modules()
+    for name in ("repro_torch.core.episode", "repro_torch.envs.lustre_model",
+                 "repro_torch.kernels.episode_learn", "repro_torch.random",
+                 "repro_torch.convert", "repro_torch.kernels.ops"):
+        assert name in mods, name
+    assert {p.name for p in (PORT / "kernels" / "csrc").iterdir()} >= {
+        "ddpg_learn.cu", "episode_learn.cu", "ddpg_update.cuh"}
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
@@ -63,6 +75,14 @@ except RuntimeError as e:
 else:
     raise AssertionError("Tuner without a card and without device= ran")
 Tuner(env, scal, eval_runs=1, device="cpu")
+try:
+    env.to_model_env()
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("ModelEnv without a card and without device= ran")
+menv = env.to_model_env(device="cpu")
+Tuner(menv, scal, eval_runs=1, engine="scan", device="cpu").run(2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

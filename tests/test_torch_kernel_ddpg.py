@@ -173,12 +173,27 @@ def test_work_counts_scale_with_sessions_and_updates():
     assert 1.5e6 < one["flops"] < 2.5e6  # ~1.85 MFLOP per session-update
 
 
-def test_build_targets_the_listed_sources():
-    assert build.sources() == ["ddpg_learn"]
-    target = build._target("ddpg_learn")
-    assert target.parent == build.BUILD_DIR
-    assert target.name.startswith("libddpg_learn-")
+def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
+    """Both kernels build from ``csrc``; a library's name hashes its source
+    and every header it includes, so an edited shared header
+    (``ddpg_update.cuh``) gives both kernels new names, never a stale
+    build."""
+    assert build.sources() == ["ddpg_learn", "episode_learn"]
+    for name in build.sources():
+        target = build._target(name)
+        assert target.parent == build.BUILD_DIR
+        assert target.name.startswith(f"lib{name}-")
+        assert [p.name for p in build.dependencies(name)] == \
+            [f"{name}.cu", "ddpg_update.cuh"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    for path in build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._target(n).name for n in build.sources()}
+    header = tmp_path / "ddpg_update.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: build._target(n).name for n in build.sources()}
+    assert all(before[n] != after[n] for n in before)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,228 @@
+"""The CUDA kernels' own source, run on the CPU: each ``.cu`` file of
+``repro_torch/kernels/csrc`` compiled by the host C++ compiler against stub
+CUDA headers, with one thread per block, and held against the kernel's plain
+PyTorch version on the same inputs.
+
+One thread stands in for a block of 256: every phase of the kernels is a
+loop ``for (e = threadIdx.x; e < n; e += blockDim.x)`` whose iterations
+write disjoint elements, and the phases are separated by
+``__syncthreads()``, so running each phase's loop whole on one thread, in
+order, computes what the block computes. What this checks on a machine
+without a card: the kernels' indexing, shared-memory carve-up, argument
+unpacking and op order. What it cannot check: races, launch limits and the
+card's own ``expf``/``powf`` (the chip check does, ``chip_smoke.py``).
+
+Tolerances (measured): ``ddpg_learn`` within 1e-6 x max|plain| per tensor
+(measured 1.0e-7); ``episode_learn`` knob indices, restarts, keys, counts
+and cursors EXACT, floats within 2e-6 relative (measured 4.5e-7).
+"""
+
+import ctypes
+import pathlib
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import random as jrandom
+from repro_torch.core import DDPGConfig, MagpieAgent
+from repro_torch.core.ddpg import DDPGState, ddpg_init, state_layout
+from repro_torch.core.episode import BufferState, EpisodeCarry
+from repro_torch.core.scalarization import metric_bounds
+from repro_torch.envs import LustreSimEnv, LustreSimV2
+from repro_torch.envs.lustre_model import LustreEnvState
+from repro_torch.kernels import build
+from repro_torch.kernels import episode_learn as el
+from repro_torch.kernels.ddpg_learn import _hyper, ddpg_learn_plain
+
+STUB = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#define __global__
+#define __device__
+#define __host__
+#define __shared__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+struct dim3_ { unsigned x, y, z; };
+extern dim3_ threadIdx, blockIdx, blockDim;
+extern float smem[];
+inline void __syncthreads() {}
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline int __float2int_rn(float a) { return (int)std::nearbyint(a); }
+using std::max;
+using std::min;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+"""
+DEFS = r"""
+#include "cuda_runtime.h"
+dim3_ threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
+float smem[1 << 17];
+"""
+LAUNCH = re.compile(
+    r"(\w+_kernel)<<<n, kThreads, smem, \(cudaStream_t\)stream>>>\(")
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """name -> the ctypes library of ``csrc/<name>.cu`` built for the CPU."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    out = tmp_path_factory.mktemp("emulated")
+    (out / "cuda_runtime.h").write_text(STUB)
+    (out / "defs.cpp").write_text(DEFS)
+    libs = {}
+    for name in build.sources():
+        for dep in build.dependencies(name)[1:]:
+            shutil.copy(dep, out / dep.name)
+        src = (build.CSRC / f"{name}.cu").read_text()
+        src = src.replace("extern __shared__ float smem[];", "")
+        src, count = LAUNCH.subn(
+            r"for (blockIdx.x = 0; blockIdx.x < (unsigned)n; ++blockIdx.x) "
+            r"\1(", src)
+        assert count == 1, name
+        (out / f"{name}.cpp").write_text(src)
+        lib = out / f"lib{name}.so"
+        subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off",
+                        "-fPIC", "-shared", "-I", str(out), "-o", str(lib),
+                        str(out / f"{name}.cpp"), str(out / "defs.cpp")],
+                       check=True, capture_output=True, timeout=300)
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return type(x)(*(_clone(y) for y in x))
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("m", [2, 8])
+def test_ddpg_learn_source_matches_plain(emulated, m):
+    cfg = DDPGConfig(12, m)
+    n, u = 3, 6
+    state = DDPGState(*(torch.stack(x) for x in zip(
+        *[ddpg_init(jrandom.PRNGKey(i), cfg, "cpu") for i in range(n)])))
+    rng = np.random.default_rng(0)
+
+    def rows(*shape, normal=False):
+        x = rng.standard_normal(shape) if normal else rng.random(shape)
+        return torch.tensor(x, dtype=torch.float32)
+
+    batches = (rows(n, u, 16, 12), rows(n, u, 16, m),
+               rows(n, u, 16, normal=True), rows(n, u, 16, 12))
+    plain, kern = _clone(state), _clone(state)
+    want = ddpg_learn_plain(plain, batches, cfg=cfg)
+    got = torch.empty((n, u, 3))
+    fn = emulated["ddpg_learn"].ddpg_learn_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p]
+    offsets = (ctypes.c_int * 48)(*state_layout(cfg).flat_offsets())
+    hyper = (ctypes.c_float * 10)(*_hyper(cfg))
+    err = fn(kern.flat.data_ptr(), kern.counts.data_ptr(),
+             *(b.data_ptr() for b in batches), got.data_ptr(),
+             ctypes.addressof(offsets), ctypes.addressof(hyper), n, u, 16,
+             12, m, 64, 64, state_layout(cfg).floats, None)
+    assert err == 0
+    assert torch.equal(kern.counts, plain.counts)
+    assert _rel(kern.flat, plain.flat) <= 1e-6
+    assert _rel(got, want) <= 1e-6
+
+
+def _operands(env_cls, n=3, steps=6, updates=4, cap=8):
+    """N sessions with their own env and agent seeds, warmup on the first
+    two steps, a reward on throughput."""
+    envs = [env_cls("seq_write", seed=s).to_model_env(device="cpu")
+            for s in range(n)]
+    cfg = DDPGConfig.for_env(envs[0], updates_per_step=updates)
+    agents = [MagpieAgent(cfg, seed=s, warmup_steps=2, buffer_capacity=cap,
+                          device="cpu") for s in range(n)]
+    k, m = cfg.state_dim, cfg.action_dim
+    rng = np.random.default_rng(1)
+    lo, span = metric_bounds(envs[0].metric_specs, envs[0].state_metrics)
+    w = np.zeros(k, np.float32)
+    w[envs[0].state_metrics.index("throughput")] = 1.0
+    carry = EpisodeCarry(
+        LustreEnvState(torch.stack([e.model_state.key for e in envs]),
+                       torch.stack([e.model_state.warmth for e in envs]),
+                       torch.stack([e.model_state.last_values
+                                    for e in envs])),
+        DDPGState(*(torch.stack(x) for x in zip(*[a.state for a in agents]))),
+        BufferState(torch.zeros(n, cap, k), torch.zeros(n, cap, m),
+                    torch.zeros(n, cap), torch.zeros(n, cap, k),
+                    torch.zeros(n, dtype=torch.int32),
+                    torch.zeros(n, dtype=torch.int32)),
+        torch.stack([a._learn_key for a in agents]),
+        torch.full((n, k), 0.4), torch.full((n,), 0.4))
+    use_warmup = torch.zeros(n, steps, dtype=torch.bool)
+    use_warmup[:, :2] = True
+
+    def f32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32)
+
+    op = el.EpisodeOperands(
+        use_warmup, f32(rng.uniform(size=(n, steps, m))),
+        f32(rng.normal(size=(n, steps, m)) * 0.1), f32(np.tile(w, (n, 1))),
+        f32(np.tile(lo, (n, 1))), f32(np.tile(span, (n, 1))),
+        torch.stack([e.params.vector() for e in envs]), carry)
+    return op, el.EpisodeKernelSpec(envs[0].model, cfg, True, updates)
+
+
+@pytest.mark.parametrize("env_cls", [LustreSimEnv, LustreSimV2])
+def test_episode_learn_source_matches_plain(emulated, env_cls):
+    op, spec = _operands(env_cls)
+    kern = _clone(op)
+    want = el.episode_learn_plain(op, spec=spec)
+    draws = el.predraw(kern, spec)
+    n, steps = kern.use_warmup.shape
+    got = el._empty_trace(n, steps, spec.cfg, "cpu")
+    fn = emulated["episode_learn"].episode_learn_launch
+    fn.argtypes = [ctypes.c_void_p] * 7
+    plan = el.check_smem_fit(spec.cfg, kern.carry.buffer.s.shape[1],
+                             spec.model.n_samples)
+    args = el.launch_args(kern, spec, *draws, got, plan)
+    assert fn(*(ctypes.addressof(a) for a in args), None) == 0
+    kern.carry.ddpg.step.add_(steps * spec.num_updates)
+    for exact in ("action_idx", "restarts"):
+        assert torch.equal(getattr(got, exact), getattr(want, exact))
+    for name in ("metrics", "rewards", "objectives"):
+        assert _rel(getattr(got, name), getattr(want, name)) <= 2e-6, name
+    a, b = kern.carry, op.carry
+    for x, y in ((a.ddpg.counts, b.ddpg.counts), (a.ddpg.step, b.ddpg.step),
+                 (a.buffer.next_slot, b.buffer.next_slot),
+                 (a.buffer.size, b.buffer.size),
+                 (a.env_state.key, b.env_state.key),
+                 (a.env_state.last_values, b.env_state.last_values),
+                 (a.learn_key, b.learn_key)):
+        assert torch.equal(x, y)
+    for x, y in ((a.ddpg.flat, b.ddpg.flat), (a.state_vec, b.state_vec),
+                 (a.objective, b.objective), (a.env_state.warmth,
+                                              b.env_state.warmth),
+                 *zip(a.buffer[:4], b.buffer[:4])):
+        assert _rel(x, y) <= 2e-6
+
+
+def test_the_emulation_covers_every_source():
+    assert build.sources() == ["ddpg_learn", "episode_learn"]
+    assert pathlib.Path(build.CSRC / "ddpg_update.cuh").exists()
