@@ -46,15 +46,44 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   the first step after it, and the replay windows' rows of
                   the warmup steps must agree within ``TUNE_WINDOW_RTOL``
                   (the rows of the later agreeing steps are reported);
-  7. timing       CUDA-event medians of both kernels and their plain versions
-                  at N = 1 and N = 1024 (the episode's plain version at N = 1
-                  only), the episode's pre-draw timed apart, beside the bound
-                  from the shapes.
+  7. check_flash  the ``flash_attention_fwd`` kernel against its plain
+                  version on the same numpy inputs: bfloat16 at the two
+                  serving shapes (B 4, S 512 and B 1, S 4096; 32 query over 4
+                  key/value heads, D 128), causal; float32 at B 2, S 256, 8
+                  over 2 heads, D 64, causal and not. ``out`` and ``lse`` held
+                  within ``FLASH_*`` below;
+  8. serve        the LM serving path, ``repro_torch.launch.serve.serve`` on
+                  Yi-9B at its published depth and width in bfloat16, random
+                  weights from a seeded ``torch.Generator`` on the card: 4
+                  prompts x 512 tokens -> 32 greedy tokens, then 1 x 4096 ->
+                  8. Each prefill must launch the flash kernel exactly 48
+                  times (once per layer) and each decode step never. Then
+                  the same prefill once more with the kernel held against its
+                  plain version on the q, k, v of each of the 48 layers (the
+                  ``FLASH_*`` bf16 bounds), and the same requests through the
+                  kernel's plain version and through the plain reference
+                  attention (``attn_impl="ref"``): their last-token logits,
+                  per-layer caches and first differing greedy position are
+                  reported, not held, since random weights at this depth
+                  amplify any rounding difference until nothing agrees
+                  (PERF.md);
+  9. timing       CUDA-event medians of every kernel and its plain version:
+                  the learners at N = 1 and N = 1024 (the episode's plain
+                  version at N = 1 only, its pre-draw timed apart), the flash
+                  kernel at the two serving shapes beside PyTorch's
+                  ``scaled_dot_product_attention`` on the same tensors; each
+                  beside the bound from the shapes.
 
 Then the ``{"kernels": [...]}`` line, ``nvidia-smi``'s line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
+
+    python3 chip_smoke.py --profile
+
+instead builds the kernels and profiles the serving path of Yi-9B
+(``torch.profiler``): per request, one prefill and 3 decode steps, with
+the device's busy share and the time of each kernel.
 
     python3 chip_smoke.py --drift
 
@@ -121,6 +150,29 @@ PEAK_BYTES = 3.35e12
 SEED_SESSIONS = 1024
 UPDATES = 96
 CAPACITY = 64
+#: published H100 SXM dense bf16 tensor-core rate (FLOP/s)
+PEAK_BF16_FLOPS = 989e12
+#: flash kernel vs its plain version on the same inputs (measured on an
+#: H100 before they were pinned; PERF.md): out and lse as
+#: max|kernel - plain| / max|plain| (bfloat16 out within FLASH_BF16_RTOL,
+#: half a bf16 step of the largest value), and for bfloat16 the share of
+#: the elements further apart than one bf16 step of the plain value
+#: (FLASH_BF16_OFF_SHARE: only values near 0, where the float32
+#: accumulation's cancellation error exceeds their own step, may be)
+FLASH_F32_RTOL = 1e-5
+FLASH_LSE_RTOL = 1e-5
+FLASH_BF16_RTOL = 2.0 ** -8
+FLASH_BF16_OFF_SHARE = 1e-3
+#: (dtype, (B, S, H, Kv, D), causal): the serving shapes in bf16, then a
+#: small float32 GQA shape both ways
+FLASH_CASES = (("bfloat16", (4, 512, 32, 4, 128), True),
+               ("bfloat16", (1, 4096, 32, 4, 128), True),
+               ("float32", (2, 256, 8, 2, 64), True),
+               ("float32", (2, 256, 8, 2, 64), False))
+#: the serving requests: (batch, prompt tokens, generated tokens)
+SERVE_REQUESTS = ((4, 512, 32), (1, 4096, 8))
+SERVE_ARCH = "yi-9b"
+SERVE_SEED = 0
 
 
 def emit(obj) -> None:
@@ -681,6 +733,400 @@ def phase_tune(space: str, steps: int) -> dict:
     return out
 
 
+def flash_inputs(shape, dtype, seed: int):
+    """q [B, H, S, D], k/v [B, Kv, S, D] standard normal, from numpy, on the
+    card in ``dtype``."""
+    import numpy as np
+    import torch
+
+    B, S, H, Kv, D = shape
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(dims, np.float32))
+                 .to("cuda", getattr(torch, dtype))
+                 for dims in ((B, H, S, D), (B, Kv, S, D), (B, Kv, S, D)))
+
+
+def rel_err(a, b) -> float:
+    """max|a - b| / max|b| in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def bf16_steps(a, b):
+    """Per element, |a - b| in units of the bfloat16 spacing at b (2^-7 of
+    the power of two at or below |b|; the smallest subnormal's at 0)."""
+    import torch
+
+    b = b.float()
+    _, exp = torch.frexp(b)
+    step = torch.ldexp(torch.ones_like(b), exp - 8).clamp_min(2.0 ** -133)
+    return (a.float() - b).abs() / step
+
+
+def flash_errors(o, lse, po, plse) -> dict:
+    """The kernel's (out, lse) against the plain version's: max|a - b| /
+    max|b| and max|a - b| of each; for bfloat16 out also the shares of the
+    elements that differ at all and by more than one bf16 step of the plain
+    value."""
+    import torch
+
+    err = {"out_rel_err": rel_err(o, po),
+           "out_max_abs_err": float((o.float() - po.float()).abs().max()),
+           "lse_rel_err": rel_err(lse, plse),
+           "lse_max_abs_err": float((lse - plse).abs().max())}
+    if o.dtype == torch.bfloat16:
+        steps = bf16_steps(o, po)
+        err["out_share_differing"] = float((steps > 0).float().mean())
+        err["out_share_over_one_step"] = float((steps > 1).float().mean())
+    return err
+
+
+def hold_flash(err: dict, where: str) -> None:
+    """Raise unless ``flash_errors`` are within the ``FLASH_*`` bounds."""
+    if "out_share_over_one_step" in err:
+        if err["out_rel_err"] > FLASH_BF16_RTOL or \
+                err["out_share_over_one_step"] > FLASH_BF16_OFF_SHARE:
+            raise AssertionError(
+                f"flash kernel vs plain: out {err['out_rel_err']} (bound "
+                f"{FLASH_BF16_RTOL}), {err['out_share_over_one_step']} of "
+                f"the elements over one bf16 step apart (bound "
+                f"{FLASH_BF16_OFF_SHARE}) {where}")
+    elif err["out_rel_err"] > FLASH_F32_RTOL:
+        raise AssertionError(f"flash kernel vs plain: out "
+                             f"{err['out_rel_err']} (bound {FLASH_F32_RTOL}) "
+                             f"{where}")
+    if err["lse_rel_err"] > FLASH_LSE_RTOL:
+        raise AssertionError(f"flash kernel vs plain: lse "
+                             f"{err['lse_rel_err']} (bound {FLASH_LSE_RTOL}) "
+                             f"{where}")
+
+
+def worst_of(errs, keys) -> dict:
+    return {key: max(e.get(key, 0.0) for e in errs) for key in keys}
+
+
+FLASH_ERROR_KEYS = ("out_rel_err", "out_max_abs_err", "lse_rel_err",
+                    "out_share_over_one_step")
+
+
+def phase_check_flash() -> dict:
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, \
+        flash_attention_fwd_plain
+
+    errs = []
+    for i, (dtype, shape, causal) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(shape, dtype, seed=500 + i)
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        o2, lse2 = flash_attention_fwd(q, k, v, causal)
+        po, plse = flash_attention_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(o, o2) and torch.equal(lse, lse2)
+        if not bitwise:
+            raise AssertionError("two flash launches on the same inputs "
+                                 "differ")
+        if not (bool(torch.isfinite(o.float()).all())
+                and bool(torch.isfinite(lse).all())):
+            raise AssertionError("flash kernel produced a non-finite value")
+        err = flash_errors(o, lse, po, plse)
+        emit({"phase": "check_flash", "dtype": dtype,
+              "shape_BSHKvD": list(shape), "causal": causal,
+              "bitwise_repeat": bitwise, **err,
+              "bounds": flash_bounds(dtype)})
+        hold_flash(err, f"({dtype}, {shape}, causal={causal})")
+        errs.append(err)
+    return worst_of(errs, FLASH_ERROR_KEYS)
+
+
+def flash_bounds(dtype: str) -> dict:
+    if dtype == "bfloat16":
+        return {"out_rel_err": FLASH_BF16_RTOL,
+                "out_share_over_one_step": FLASH_BF16_OFF_SHARE,
+                "lse_rel_err": FLASH_LSE_RTOL}
+    return {"out_rel_err": FLASH_F32_RTOL, "lse_rel_err": FLASH_LSE_RTOL}
+
+
+def phase_serve() -> dict:
+    """The LM serving path on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ddpg_learn import ddpg_learn
+    from repro_torch.kernels.episode_learn import episode_learn
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, \
+        flash_attention_fwd_plain
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import init_params, model_defs
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(SERVE_SEED), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     tree_leaves(params)) / 1e9
+
+    def prompts_of(batch, seq):
+        rng = np.random.default_rng(seq)
+        return torch.as_tensor(rng.integers(1, cfg.vocab_size, (batch, seq)),
+                               device="cuda")
+
+    # per prefill and per decode step, the flash launches it made
+    per_call = {"prefill": [], "decode": []}
+
+    def counted(kind, make):
+        def make_counted(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a, **kw):
+                before = flash_attention_fwd.launches
+                out = step(*a, **kw)
+                per_call[kind].append(flash_attention_fwd.launches - before)
+                return out
+            return run
+        return make_counted
+
+    # the attention routes of the comparison runs (ops dispatches a CUDA
+    # tensor to the kernel; these runs swap what it calls)
+    kernel = ops.flash_attention_fwd
+    layer_errs = []
+
+    def plain_route(q, k, v, causal=True):
+        return flash_attention_fwd_plain(q, k, v, causal)
+
+    def checked_route(q, k, v, causal=True):
+        out, lse = kernel(q, k, v, causal)
+        layer_errs.append(flash_errors(
+            out, lse, *flash_attention_fwd_plain(q, k, v, causal)))
+        return out, lse
+
+    def routed(route, fn):
+        ops.flash_attention_fwd = route
+        try:
+            return fn()
+        finally:
+            ops.flash_attention_fwd = kernel
+
+    # first use of the kernel library and cuBLAS, outside the counted run
+    serve_mod.serve(cfg, prompts_of(1, 128), 2, params=params, device="cuda")
+    torch.cuda.synchronize()
+
+    served = []
+    make_prefill, make_decode = serve_mod.make_prefill_step, \
+        serve_mod.make_decode_step
+    serve_mod.make_prefill_step = counted("prefill", make_prefill)
+    serve_mod.make_decode_step = counted("decode", make_decode)
+    try:
+        for batch, seq, gen in SERVE_REQUESTS:
+            prompts = prompts_of(batch, seq)
+            for kind in per_call:
+                per_call[kind].clear()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention_fwd.launches = 0
+            ddpg_learn.launches = episode_learn.launches = 0
+            res = serve_mod.serve(cfg, prompts, gen, params=params,
+                                  device="cuda")
+            launches = flash_attention_fwd.launches
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if per_call["prefill"] != [cfg.num_layers] or \
+                    any(per_call["decode"]) or \
+                    len(per_call["decode"]) != gen - 1 or \
+                    launches != cfg.num_layers or \
+                    ddpg_learn.launches or episode_learn.launches:
+                raise AssertionError(
+                    f"serve ({batch}x{seq}): flash launches per prefill "
+                    f"{per_call['prefill']}, per decode step "
+                    f"{per_call['decode']}, in all {launches}; want "
+                    f"{cfg.num_layers} per prefill and 0 per decode step")
+            if tuple(res.tokens.shape) != (batch, gen) or not bool(
+                    torch.isfinite(res.prefill_logits.float()).all()):
+                raise AssertionError(f"serve ({batch}x{seq}): tokens "
+                                     f"{tuple(res.tokens.shape)} or "
+                                     f"non-finite logits")
+            served.append((batch, seq, gen, prompts, res, launches, peak_gb,
+                           list(per_call["decode"])))
+    finally:
+        serve_mod.make_prefill_step = make_prefill
+        serve_mod.make_decode_step = make_decode
+
+    rows, total = [], 0
+    for batch, seq, gen, prompts, res, launches, peak_gb, _ in served:
+        total += launches
+        where = f"serve ({batch}x{seq})"
+        # the kernel on the model's own activations, layer by layer
+        layer_errs.clear()
+        before = flash_attention_fwd.launches
+        routed(checked_route, lambda: serve_mod.make_prefill_step(
+            cfg, batch, seq)(params, prompts))
+        if len(layer_errs) != cfg.num_layers:
+            raise AssertionError(f"{where}: {len(layer_errs)} checked layers")
+        for i, err in enumerate(layer_errs):
+            hold_flash(err, f"{where}, layer {i}")
+        # the whole path through the kernel's plain version, and through
+        # the plain reference attention (sdpa_ref): reported
+        plain = routed(plain_route, lambda: serve_mod.serve(
+            cfg, prompts, gen, params=params, device="cuda"))
+        ref = serve_mod.serve(cfg, prompts, gen, params=params,
+                              attn_impl="ref", device="cuda")
+        if flash_attention_fwd.launches != before + cfg.num_layers:
+            raise AssertionError(f"{where}: the plain paths launched the "
+                                 f"flash kernel")
+        flash_attention_fwd.launches = before  # checking launches not counted
+
+        def versus(other):
+            per_layer = [max(rel_err(res.cache[key][i, :, :seq],
+                                     other.cache[key][i, :, :seq])
+                             for key in ("k", "v"))
+                         for i in range(cfg.num_layers)]
+            parted = (res.tokens != other.tokens).any(dim=0).nonzero()
+            return {"logits_rel_err": rel_err(res.prefill_logits,
+                                              other.prefill_logits),
+                    "cache_rel_err_per_layer": [float(f"{e:.3g}")
+                                                for e in per_layer],
+                    "layers_equal": next((i for i, e in enumerate(per_layer)
+                                          if e > 0), cfg.num_layers),
+                    "first_token_position_differing":
+                        int(parted[0]) if parted.numel() else None}
+
+        row = {"phase": "serve", "arch": cfg.name,
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
+               "batch": batch, "prompt": seq, "generated": gen,
+               "flash_launches_per_prefill": cfg.num_layers,
+               "flash_launches_per_decode_step": 0,
+               "prefill_ms": res.prefill_seconds * 1e3,
+               "decode_ms_per_token": res.decode_seconds / (gen - 1) * 1e3,
+               "plain_prefill_ms": plain.prefill_seconds * 1e3,
+               "ref_prefill_ms": ref.prefill_seconds * 1e3,
+               "peak_memory_gb": peak_gb, "weights_gb": weights_gb,
+               "init_seconds": init_s,
+               "layers_held": worst_of(layer_errs, FLASH_ERROR_KEYS),
+               "layer_bounds": flash_bounds("bfloat16"),
+               "vs_plain_version": versus(plain),
+               "vs_sdpa_ref": versus(ref),
+               "first_sequence": res.tokens[0].tolist()}
+        emit(row)
+        rows.append(row)
+    del params, served
+    torch.cuda.empty_cache()
+    return {"launches": total, "rows": rows}
+
+
+def phase_profile() -> None:
+    """``--profile``: ``torch.profiler`` over the serving path of Yi-9B, for
+    each request one prefill and then 3 decode steps (after an untimed
+    prefill that warms the libraries): the wall time, the device time of
+    every kernel summed (one stream, so the device's busy time), the busy
+    share, the flash kernel's time, and the ten kernels that took longest."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import init_params, model_defs
+
+    cfg = get_config(SERVE_ARCH)
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(SERVE_SEED), "cuda")
+    decode_steps = 3
+    for batch, seq, _ in SERVE_REQUESTS:
+        rng = np.random.default_rng(seq)
+        prompts = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                               (batch, seq)), device="cuda")
+        prefill = serve_mod.make_prefill_step(cfg, batch, seq + decode_steps)
+        decode = serve_mod.make_decode_step(cfg)
+        logits, cache = prefill(params, prompts)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        runs = (("prefill", 1, lambda: prefill(params, prompts)),
+                ("decode", decode_steps,
+                 lambda: [decode(params, tok, cache, seq + i)
+                          for i in range(decode_steps)]))
+        for step, calls, fn in runs:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            emit({"phase": "profile", "batch": batch, "prompt": seq,
+                  "step": step, "calls": calls,
+                  "wall_ms_per_call": wall_ms / calls,
+                  "device_ms_per_call": device_ms / calls,
+                  "device_busy_share": device_ms / wall_ms,
+                  "flash_ms_per_call": sum(
+                      e.self_device_time_total for e in kernels
+                      if "flash_fwd_kernel" in e.key) / 1e3 / calls,
+                  "kernel_launches_per_call": sum(e.count for e in kernels)
+                  / calls,
+                  "top_kernels": [[e.key[:70], e.self_device_time_total
+                                   / 1e3 / calls, e.count // calls]
+                                  for e in top[:10]]})
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def phase_timing_flash(smi: str) -> list:
+    """CUDA-event medians of ``flash_attention_fwd`` at the two bf16
+    serving shapes (causal), of its plain version, and of PyTorch's
+    ``scaled_dot_product_attention`` on the same tensors (the yardstick
+    only: the port never calls it), beside the bound from ``work()``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    for dtype, shape, causal in FLASH_CASES[:2]:
+        B, S, H, Kv, D = shape
+        q, k, v = flash_inputs(shape, dtype, seed=600)
+        before = fa.flash_attention_fwd.launches
+        kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal),
+                            20)
+        fa.flash_attention_fwd.launches = before  # timing launches not counted
+        plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v,
+                                                                causal),
+                           5, warmup=1)
+        try:
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), 20)
+            library_call = "scaled_dot_product_attention(enable_gqa=True)"
+        except TypeError:  # a PyTorch without enable_gqa: expand k/v first
+            ke, ve = (x.repeat_interleave(H // Kv, dim=1) for x in (k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, ke, ve, is_causal=causal), 20)
+            library_call = "scaled_dot_product_attention(k/v expanded)"
+        w = fa.work(B, H, Kv, S, D, causal, q.element_size())
+        flops_ms = w["flops"] / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = w["bytes"] / PEAK_BYTES * 1e3
+        row = {"phase": "timing", "kernel": "flash_attention_fwd",
+               "dtype": dtype, "shape_BSHKvD": list(shape), "causal": causal,
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library_call": library_call,
+               "bound_ms": max(flops_ms, bytes_ms),
+               "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+               "bound_f32_cuda_cores_ms": w["flops"] / PEAK_F32_FLOPS * 1e3,
+               "flops": w["flops"], "bytes": w["bytes"],
+               "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
+               "tflops": w["flops"] / kernel_ms / 1e9, "card": smi}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def time_ms(fn, runs: int, warmup: int = 3) -> float:
     """Median of ``runs`` CUDA-event timings of ``fn()``, after warmup."""
     import torch
@@ -828,14 +1274,20 @@ def main() -> int:
     if sys.argv[1:] == ["--drift"]:
         phase_drift()
         return 0
+    if sys.argv[1:] == ["--profile"]:
+        phase_profile()
+        return 0
     configs = {"2d": DDPGConfig(state_dim=12, action_dim=2),
                "8d": DDPGConfig(state_dim=12, action_dim=8)}
     err = phase_check(configs)
     ep_err = phase_check_episode()
     tunes = [phase_tune("2d", 30), phase_tune("8d", 30)]
     scans = [phase_tune_scan("2d", EP_STEPS), phase_tune_scan("8d", EP_STEPS)]
+    flash_err = phase_check_flash()
+    served = phase_serve()
     rows = phase_timing(configs, smi)
     ep_rows = phase_timing_episode(smi)
+    flash_rows = phase_timing_flash(smi)
 
     main_row = next(r for r in rows
                     if r["space"] == "2d" and r["sessions"] == SEED_SESSIONS)
@@ -869,7 +1321,24 @@ def main() -> int:
         "ms": ep_row["ms"], "plain_ms": ep_plain["plain_ms"],
         "plain_sessions": 1, "bound_ms": ep_row["bound_ms"],
         "bound_by": ep_row["bound_by"], "library_ms": None,
-        "sessions": SEED_SESSIONS, "steps": EP_STEPS, "ok": True}]})
+        "sessions": SEED_SESSIONS, "steps": EP_STEPS, "ok": True}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": served["launches"],
+        "max_abs_err": flash_err["out_max_abs_err"],
+        "out_rel_err": flash_err["out_rel_err"],
+        "bf16_share_over_one_step": flash_err["out_share_over_one_step"],
+        "lse_rel_err": flash_err["lse_rel_err"],
+        "serve_layers_held": [r["layers_held"] for r in served["rows"]],
+        "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
+        "bound_ms": flash_rows[0]["bound_ms"],
+        "bound_by": flash_rows[0]["bound_by"],
+        "library_ms": flash_rows[0]["library_ms"],
+        "shape_BSHKvD": flash_rows[0]["shape_BSHKvD"], "dtype": "bfloat16",
+        "at_S4096": {key: flash_rows[1][key] for key in (
+            "shape_BSHKvD", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}, "ok": True}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -126,3 +126,34 @@ def buffer_from_numpy(tree, device=None):
     ints = [torch.as_tensor(np.array(x, np.int32), device=device)
             for x in (next_slot, size)]
     return BufferState(*floats, *ints)
+
+
+def _tensor_from_numpy(x, device) -> torch.Tensor:
+    """One array (numpy, or anything ``np.asarray`` takes) as a tensor of
+    the same dtype on ``device``; bfloat16 (ml_dtypes) by its bits."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    return _tensor_from_numpy(tree, device)
+
+
+def lm_params_from_jax(tree, device=None) -> dict:
+    """The JAX package's LM parameter tree (nested dicts of arrays; numpy
+    or jax leaves) as the port's nested dict of tensors on ``device``. The
+    layouts are the same (stacked ``[L, ...]`` layers, ``[in, ...out]``
+    projections), so this is a tree walk; dtypes map one to one."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def lm_cache_from_jax(tree, device=None) -> dict:
+    """The JAX package's serving cache (``{"k", "v"}`` of
+    ``[L, B, S_max, Kv, Dh]``) as the port's, on ``device``."""
+    return _tree_from_numpy(tree, resolve_device(device))

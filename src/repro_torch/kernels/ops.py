@@ -11,6 +11,12 @@ from repro_torch.core.ddpg import DDPGConfig, DDPGState
 from repro_torch.kernels.ddpg_learn import ddpg_learn, ddpg_learn_plain
 from repro_torch.kernels.episode_learn import EpisodeKernelSpec, \
     EpisodeOperands, episode_learn, episode_learn_plain
+from repro_torch.kernels.flash_attention import flash_attention_fwd, \
+    flash_attention_fwd_plain
+
+#: ``attention`` takes sequence lengths that are multiples of this, as the
+#: JAX package's ``kernels/ops.py::attention`` routes to its kernel
+ATTENTION_BLOCK = 128
 
 
 def ddpg_inner_loop(state: DDPGState, batches: tuple, *,
@@ -35,3 +41,24 @@ def episode_inner_loop(operands: EpisodeOperands, *,
     if device.type == "cpu":
         return episode_learn_plain(operands, spec=spec)
     raise ValueError(f"no episode kernel for device {device}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """Flash attention in the model layout (``kernels.flash_attention``):
+    q ``[B, S, H, D]``, k/v ``[B, Sk, Kv, D]`` -> ``[B, S, H, D]``. Needs
+    ``D >= 8`` and both sequence lengths multiples of 128; transposes to the
+    kernel layout ``[B, H, S, D]`` and back."""
+    S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    if S % ATTENTION_BLOCK or Sk % ATTENTION_BLOCK or D < 8:
+        raise ValueError(f"flash attention takes sequence lengths that are "
+                         f"multiples of {ATTENTION_BLOCK} and a head dim of "
+                         f"at least 8, got {S}, {Sk} and {D}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if q.device.type == "cuda":
+        out, _ = flash_attention_fwd(qt, kt, vt, causal)
+    elif q.device.type == "cpu":
+        out, _ = flash_attention_fwd_plain(qt, kt, vt, causal)
+    else:
+        raise ValueError(f"no flash attention for device {q.device}")
+    return out.transpose(1, 2)

@@ -1,0 +1,196 @@
+"""The decoder-only model stack for the dense family (GQA attention + SwiGLU
+or GELU MLP), with the serving entry points.
+
+Layers are stacked along a leading ``layers`` axis, as in the JAX package
+(``repro/models/transformer.py``); where JAX scans over the stack, the port
+runs a Python loop over the views ``p[l]`` of the stacked tensors. Caches
+follow the same stacking.
+
+Entry points:
+    model_defs(cfg)                          -> ParamDef tree
+    cache_spec(cfg, batch, max_seq)          -> ParamDef tree of the cache
+    make_cache(cfg, batch, max_seq, device)  -> cache (zeros)
+    abstract_cache(cfg, batch, max_seq)      -> cache on the ``meta`` device
+    prefill(cfg, params, tokens, cache)      -> (last-token logits, cache)
+    decode_step(cfg, params, tok, cache, i)  -> (logits, cache)
+
+The cache is updated IN PLACE (the JAX version is pure: its
+``dynamic_update_slice`` returns a new cache); both functions return the
+dict they were given. The other families (MoE, MLA, SSM, hybrid, enc-dec)
+and the training ``forward`` are not ported yet: they raise naming their
+ROADMAP row.
+"""
+
+from __future__ import annotations
+
+import operator
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import gqa_apply, gqa_defs, rope_angles
+from repro_torch.models.base import ArchConfig, ParamDef, apply_norm, \
+    map_defs, norm_defs
+from repro_torch.models.ffn import ffn_apply, ffn_defs
+
+
+def _require_ported(cfg: ArchConfig) -> None:
+    """Raise for every branch of the JAX stack this port does not have."""
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"not ported yet: ROADMAP A11")
+    if cfg.family == "ssm":
+        raise NotImplementedError(f"{cfg.name}: RWKV6 is not ported yet: "
+                                  f"ROADMAP B6")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(f"{cfg.name}: the hybrid Mamba2 stack is "
+                                  f"not ported yet: ROADMAP B5")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"unknown family {cfg.family}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
+                                  f"yet: ROADMAP B4")
+    if cfg.attention == "mla":
+        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported "
+                                  f"yet: ROADMAP A11")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+def embed_defs(cfg: ArchConfig) -> dict:
+    return {"tok": ParamDef((cfg.vocab_size, cfg.d_model),
+                            ("vocab", "embed_table"), "small",
+                            cfg.param_dtype)}
+
+
+def _decoder_layer_defs(cfg: ArchConfig, L: int) -> dict:
+    """One stacked decoder layer (attention + mlp)."""
+    return {"attn_norm": norm_defs(cfg),
+            "attn": gqa_defs(cfg, stacked_layers=L),
+            "mlp_norm": norm_defs(cfg),
+            "mlp": ffn_defs(cfg, stacked_layers=L)}
+
+
+def model_defs(cfg: ArchConfig) -> dict:
+    _require_ported(cfg)
+    defs: dict = {"embed": embed_defs(cfg),
+                  "layers": _decoder_layer_defs(cfg, cfg.num_layers),
+                  "final_norm": norm_defs(cfg, stacked=False)}
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                   ("embed", "vocab"), "small",
+                                   cfg.param_dtype)
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def cache_spec(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """ParamDef-style spec of the serving cache: k and v
+    ``[L, batch, max_seq, Kv, Dh]`` in the compute dtype."""
+    _require_ported(cfg)
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    return {"k": ParamDef(shape, axes, "zeros", cfg.compute_dtype),
+            "v": ParamDef(shape, axes, "zeros", cfg.compute_dtype)}
+
+
+def make_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
+    device = resolve_device(device)
+    return map_defs(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                          device=device),
+                    cache_spec(cfg, batch, max_seq))
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int):
+    return map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"),
+                    cache_spec(cfg, batch, max_seq))
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _default_positions(batch: int, seq: int, offset=0,
+                       device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] \
+        + offset
+    return pos.expand(batch, seq)
+
+
+def _layer(tree: dict, index: int) -> dict:
+    """Views ``t[index]`` of every tensor of a stacked tree."""
+    return {k: _layer(v, index) if isinstance(v, dict) else v[index]
+            for k, v in tree.items()}
+
+
+def _attn_mlp_layer(cfg: ArchConfig, angles, impl, cache_index):
+    """Builds ``layer_fn(x, lp, lc) -> x`` for the dense family; ``lc`` (the
+    layer's cache views) is written in place."""
+    def layer_fn(x, lp, lc):
+        h = apply_norm(cfg, lp["attn_norm"], x)
+        a, _ = gqa_apply(cfg, lp["attn"], h, angles=angles, cache=lc,
+                         cache_index=cache_index, impl=impl)
+        x = x + a.to(x.dtype)
+        h = apply_norm(cfg, lp["mlp_norm"], x)
+        return x + ffn_apply(cfg, lp["mlp"], h).to(x.dtype)
+    return layer_fn
+
+
+def _stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
+           caches=None, cache_index=None, impl="auto"):
+    """Runs the layer stack, layer by layer. Returns (hidden, caches)."""
+    layer_fn = _attn_mlp_layer(cfg, angles, impl, cache_index)
+    for index in range(cfg.num_layers):
+        lc = None if caches is None else \
+            {"k": caches["k"][index], "v": caches["v"][index]}
+        x = layer_fn(x, _layer(params["layers"], index), lc)
+    return x, caches
+
+
+def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(cfg, params["final_norm"], x)
+    head = params["embed"]["tok"].T if cfg.tie_embeddings \
+        else params["lm_head"]
+    return torch.einsum("bsd,dv->bsv", x, head)
+
+
+def _angles(cfg: ArchConfig, positions) -> torch.Tensor:
+    return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                       cfg.mrope_sections)
+
+
+def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache, *,
+            attn_impl: str = "auto") -> tuple:
+    """Process the prompt ``tokens [B, S]`` (positions 0..S-1) and write
+    its keys and values into ``cache`` (in place); returns ``(logits
+    [B, 1, V] of the last token, cache)``."""
+    _require_ported(cfg)
+    B, S = tokens.shape[:2]
+    x = params["embed"]["tok"][tokens].to(cfg.compute_dtype)
+    positions = _default_positions(B, S, device=tokens.device)
+    x, cache = _stack(cfg, params, x, angles=_angles(cfg, positions),
+                      caches=cache, impl=attn_impl)
+    return _logits(cfg, params, x[:, -1:, :]), cache
+
+
+def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache,
+                cache_index) -> tuple:
+    """One decode step: ``tokens [B, 1]`` at position ``cache_index`` (the
+    current length, an int), attending over the cache's first
+    ``cache_index + 1`` slots; writes its key and value into slot
+    ``cache_index`` (in place). Returns ``(logits [B, 1, V], cache)``."""
+    _require_ported(cfg)
+    cache_index = operator.index(cache_index)
+    x = params["embed"]["tok"][tokens].to(cfg.compute_dtype)
+    positions = _default_positions(tokens.shape[0], 1, offset=cache_index,
+                                   device=tokens.device)
+    x, cache = _stack(cfg, params, x, angles=_angles(cfg, positions),
+                      caches=cache, cache_index=cache_index, impl="ref")
+    return _logits(cfg, params, x), cache

@@ -35,6 +35,20 @@ def test_the_scan_engine_slice_is_covered():
         "ddpg_learn.cu", "episode_learn.cu", "ddpg_update.cuh"}
 
 
+def test_the_lm_serving_slice_is_covered():
+    """The import checks below walk the LM serving slice's subpackages and
+    the flash-attention kernel too."""
+    mods = _port_modules()
+    for name in ("repro_torch.models", "repro_torch.models.base",
+                 "repro_torch.models.attention", "repro_torch.models.ffn",
+                 "repro_torch.models.transformer", "repro_torch.configs",
+                 "repro_torch.configs.yi_9b", "repro_torch.training.steps",
+                 "repro_torch.launch.serve",
+                 "repro_torch.kernels.flash_attention"):
+        assert name in mods, name
+    assert (PORT / "kernels" / "csrc" / "flash_attention_fwd.cu").exists()
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
@@ -83,6 +97,16 @@ else:
     raise AssertionError("ModelEnv without a card and without device= ran")
 menv = env.to_model_env(device="cpu")
 Tuner(menv, scal, eval_runs=1, engine="scan", device="cpu").run(2)
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.serve import serve
+cfg = get_smoke_config("yi-9b")
+try:
+    serve(cfg, [[1, 2, 3]], 2)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("serve without a card and without device= ran")
+assert serve(cfg, [[1] * 128], 2, device="cpu").tokens.shape == (1, 2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

@@ -174,17 +174,19 @@ def test_work_counts_scale_with_sessions_and_updates():
 
 
 def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
-    """Both kernels build from ``csrc``; a library's name hashes its source
+    """Every kernel builds from ``csrc``; a library's name hashes its source
     and every header it includes, so an edited shared header
-    (``ddpg_update.cuh``) gives both kernels new names, never a stale
-    build."""
-    assert build.sources() == ["ddpg_learn", "episode_learn"]
+    (``ddpg_update.cuh``) gives both learner kernels new names, never a
+    stale build, and leaves the flash-attention kernel's alone."""
+    learners = ["ddpg_learn", "episode_learn"]
+    assert build.sources() == learners + ["flash_attention_fwd"]
     for name in build.sources():
         target = build._target(name)
         assert target.parent == build.BUILD_DIR
         assert target.name.startswith(f"lib{name}-")
+        headers = ["ddpg_update.cuh"] if name in learners else []
         assert [p.name for p in build.dependencies(name)] == \
-            [f"{name}.cu", "ddpg_update.cuh"]
+            [f"{name}.cu"] + headers
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for path in build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
@@ -193,7 +195,8 @@ def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
     header = tmp_path / "ddpg_update.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: build._target(n).name for n in build.sources()}
-    assert all(before[n] != after[n] for n in before)
+    assert all(before[n] != after[n] for n in learners)
+    assert before["flash_attention_fwd"] == after["flash_attention_fwd"]
 
 
 @pytest.mark.cuda

@@ -14,7 +14,11 @@ card's own ``expf``/``powf`` (the chip check does, ``chip_smoke.py``).
 
 Tolerances (measured): ``ddpg_learn`` within 1e-6 x max|plain| per tensor
 (measured 1.0e-7); ``episode_learn`` knob indices, restarts, keys, counts
-and cursors EXACT, floats within 2e-6 relative (measured 4.5e-7).
+and cursors EXACT, floats within 2e-6 relative (measured 4.5e-7);
+``flash_attention_fwd`` float32 out and lse within 2e-6 relative (measured
+4.8e-7 and 1.6e-7), bfloat16 out within one bf16 ulp of its largest value
+(2^-7 relative; measured 4.1e-5: 0.04 % of the elements round the other
+way) and lse within 2e-6.
 """
 
 import ctypes
@@ -37,6 +41,8 @@ from repro_torch.envs.lustre_model import LustreEnvState
 from repro_torch.kernels import build
 from repro_torch.kernels import episode_learn as el
 from repro_torch.kernels.ddpg_learn import _hyper, ddpg_learn_plain
+from repro_torch.kernels.flash_attention import flash_attention_fwd_plain, \
+    scale_of
 
 STUB = r"""
 #pragma once
@@ -68,14 +74,37 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+"""
+#: bfloat16 as its 16 bits; conversions round to nearest even (finite values)
+BF16_STUB = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { std::uint16_t bits; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  std::uint32_t u = std::uint32_t(b.bits) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  std::uint32_t u;
+  std::memcpy(&u, &f, 4);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {std::uint16_t(u >> 16)};
+}
 """
 DEFS = r"""
 #include "cuda_runtime.h"
 dim3_ threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
-float smem[1 << 17];
+alignas(16) float smem[1 << 17];
 """
-LAUNCH = re.compile(
-    r"(\w+_kernel)<<<n, kThreads, smem, \(cudaStream_t\)stream>>>\(")
+LAUNCH = re.compile(r"(\w+_kernel(?:<\w+>)?)"
+                    r"<<<n, kThreads, smem, \(cudaStream_t\)stream>>>\(")
 
 
 @pytest.fixture(scope="module")
@@ -86,6 +115,7 @@ def emulated(tmp_path_factory):
         pytest.skip("needs a host C++ compiler (g++)")
     out = tmp_path_factory.mktemp("emulated")
     (out / "cuda_runtime.h").write_text(STUB)
+    (out / "cuda_bf16.h").write_text(BF16_STUB)
     (out / "defs.cpp").write_text(DEFS)
     libs = {}
     for name in build.sources():
@@ -223,6 +253,33 @@ def test_episode_learn_source_matches_plain(emulated, env_cls):
         assert _rel(x, y) <= 2e-6
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fwd_source_matches_plain(emulated, causal, dtype):
+    """Two query blocks and two key blocks of 64 (the causal loop stops at
+    the diagonal for the first), GQA with two query heads per key/value
+    head, two batch rows."""
+    B, H, Kv, S, D = 2, 4, 2, 128, 16
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dtype)
+               for shape in ((B, H, S, D), (B, Kv, S, D), (B, Kv, S, D)))
+    want_o, want_lse = flash_attention_fwd_plain(q, k, v, causal)
+    got_o, got_lse = torch.empty_like(q), torch.empty((B, H, S))
+    fn = emulated["flash_attention_fwd"].flash_attention_fwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), got_o.data_ptr(),
+             got_lse.data_ptr(), B, H, Kv, S, S, D, int(causal),
+             int(dtype == torch.bfloat16), scale_of(D), None)
+    assert err == 0
+    assert _rel(got_lse, want_lse) <= 2e-6
+    assert _rel(got_o, want_o) <= (2e-6 if dtype == torch.float32
+                                   else 2.0 ** -7)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), got_o.data_ptr(),
+              got_lse.data_ptr(), B, H, Kv, 96, 96, D, 1, 0, 1.0, None) == -1
+
+
 def test_the_emulation_covers_every_source():
-    assert build.sources() == ["ddpg_learn", "episode_learn"]
+    assert build.sources() == ["ddpg_learn", "episode_learn",
+                               "flash_attention_fwd"]
     assert pathlib.Path(build.CSRC / "ddpg_update.cuh").exists()
