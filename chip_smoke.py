@@ -67,23 +67,60 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   reported, not held, since random weights at this depth
                   amplify any rounding difference until nothing agrees
                   (PERF.md);
-  9. timing       CUDA-event medians of every kernel and its plain version:
+  9. check_flash_bwd the flash backward kernels (``flash_attention_dq``;
+                  ``flash_attention_dkv``) against their plain version on
+                  the same numpy inputs (out and lse from the forward's plain
+                  version): bfloat16 at the training shape of
+                  phi4-mini-3.8b (B 2, S 2048, 24 query over 8 key/value
+                  heads, D 128, causal), float32 at B 2, S 256, 8 over 2
+                  heads, D 64, causal and not; dq, dk, dv held within
+                  ``FLASH_BWD_*``, two launches bitwise equal, and the
+                  kernels' shared memory equal to ``bwd_smem_plan``;
+ 10. train        the training path, ``Trainer`` over
+                  ``make_train_step`` on phi4-mini-3.8b at its published
+                  size in bfloat16 (random weights from a seeded
+                  ``torch.Generator`` on the card; AdamW from
+                  ``launch.train.make_optimizer``, clip 1.0,
+                  ``remat="full"``; ``TokenPipeline`` batches of 2 x 2048
+                  tokens): 4 steps, each launching the flash forward exactly
+                  64 times (the forward and the remat recompute, 32 layers
+                  each) and dq and dk/dv 32 times each, with a finite loss
+                  and grad_norm and parameters that moved; wall time,
+                  tokens/s and peak memory per step. Then one more step with
+                  the backward kernels held against their plain version on
+                  each of the 32 layers' own (q, k, v, out, lse, dout), and
+                  the loss and grad_norm of one batch through the kernels
+                  and through their plain versions (reported, not held:
+                  random weights at this depth amplify rounding);
+ 11. timing       CUDA-event medians of every kernel and its plain version:
                   the learners at N = 1 and N = 1024 (the episode's plain
                   version at N = 1 only, its pre-draw timed apart), the flash
-                  kernel at the two serving shapes beside PyTorch's
-                  ``scaled_dot_product_attention`` on the same tensors; each
-                  beside the bound from the shapes.
+                  forward at the two serving shapes beside PyTorch's
+                  ``scaled_dot_product_attention`` on the same tensors, and
+                  the flash forward, dq and dk/dv at the training shape
+                  beside SDPA's forward and backward; each beside the bound
+                  from the shapes.
 
 Then the ``{"kernels": [...]}`` line, ``nvidia-smi``'s line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
+Phases 1-8 and the matching timings are the earlier slices' and run as
+they did.
+
     python3 chip_smoke.py --profile
 
 instead builds the kernels and profiles the serving path of Yi-9B
 (``torch.profiler``): per request, one prefill and 3 decode steps, with
 the device's busy share and the time of each kernel.
+
+    python3 chip_smoke.py --profile-train
+
+instead builds the kernels and profiles one training step of
+phi4-mini-3.8b at the ``train`` phase's size (after one untimed step):
+the device's busy share and the device time of the flash kernels, the
+cuBLAS products and the rest.
 
     python3 chip_smoke.py --drift
 
@@ -173,6 +210,27 @@ FLASH_CASES = (("bfloat16", (4, 512, 32, 4, 128), True),
 SERVE_REQUESTS = ((4, 512, 32), (1, 4096, 8))
 SERVE_ARCH = "yi-9b"
 SERVE_SEED = 0
+#: flash backward kernels (dq; dk and dv) vs their plain version on the
+#: same inputs, as max|kernel - plain| / max|plain| of each of dq, dk, dv
+#: (float32 within FLASH_BWD_F32_RTOL; bfloat16 within FLASH_BWD_BF16_RTOL
+#: and at most FLASH_BWD_BF16_OFF_SHARE of the elements further apart than
+#: one bf16 step of the plain value: ds = p (dp - delta) cancels, so small
+#: gradients carry the float32 summation-order error of the large ones)
+FLASH_BWD_F32_RTOL = 1e-5
+FLASH_BWD_BF16_RTOL = 2.0 ** -8
+FLASH_BWD_BF16_OFF_SHARE = 1e-3
+#: (dtype, (B, S, H, Kv, D), causal): the training shape of phi4-mini-3.8b
+#: in bf16, then a small float32 GQA shape both ways
+FLASH_BWD_CASES = (("bfloat16", (2, 2048, 24, 8, 128), True),
+                   ("float32", (2, 256, 8, 2, 64), True),
+                   ("float32", (2, 256, 8, 2, 64), False))
+#: the training run: phi4-mini-3.8b at its published size, a batch of 2
+#: sequences of 2048 tokens, 4 steps of AdamW through the Trainer
+TRAIN_ARCH = "phi4-mini-3.8b"
+TRAIN_BATCH = 2
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 4
+TRAIN_SEED = 0
 
 
 def emit(obj) -> None:
@@ -1015,6 +1073,277 @@ def phase_serve() -> dict:
     return {"launches": total, "rows": rows}
 
 
+def flash_bwd_inputs(shape, dtype, seed: int, causal: bool):
+    """``flash_inputs`` and a standard-normal ``dout`` from numpy, with out
+    and lse from the forward's plain version: ``(q, k, v, out, lse,
+    dout)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd_plain
+
+    B, S, H, Kv, D = shape
+    q, k, v = flash_inputs(shape, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.as_tensor(rng.standard_normal((B, H, S, D), np.float32)) \
+        .to("cuda", getattr(torch, dtype))
+    out, lse = flash_attention_fwd_plain(q, k, v, causal)
+    return q, k, v, out, lse, dout
+
+
+def flash_bwd_errors(got, want) -> dict:
+    """Per gradient (dq, dk, dv): max|a - b| / max|b|, max|a - b|, and for
+    bfloat16 the share of the elements further apart than one bf16 step of
+    the plain value."""
+    import torch
+
+    err = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err[f"{name}_rel_err"] = rel_err(a, b)
+        err[f"{name}_max_abs_err"] = float((a.float() - b.float()).abs().max())
+        if a.dtype == torch.bfloat16:
+            steps = bf16_steps(a, b)
+            err[f"{name}_share_differing"] = float((steps > 0).float().mean())
+            err[f"{name}_share_over_one_step"] = float(
+                (steps > 1).float().mean())
+    return err
+
+
+FLASH_BWD_ERROR_KEYS = tuple(f"{g}_{key}" for g in ("dq", "dk", "dv")
+                             for key in ("rel_err", "max_abs_err",
+                                         "share_over_one_step"))
+
+
+def flash_bwd_bounds(dtype: str) -> dict:
+    if dtype == "bfloat16":
+        return {"rel_err": FLASH_BWD_BF16_RTOL,
+                "share_over_one_step": FLASH_BWD_BF16_OFF_SHARE}
+    return {"rel_err": FLASH_BWD_F32_RTOL}
+
+
+def hold_flash_bwd(err: dict, dtype: str, where: str) -> None:
+    """Raise unless ``flash_bwd_errors`` are within the ``FLASH_BWD_*``
+    bounds."""
+    for g in ("dq", "dk", "dv"):
+        for key, bound in flash_bwd_bounds(dtype).items():
+            if err[f"{g}_{key}"] > bound:
+                raise AssertionError(
+                    f"flash backward vs plain: {g} {key} {err[f'{g}_{key}']} "
+                    f"(bound {bound}) {where}")
+
+
+def phase_check_flash_bwd() -> dict:
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    plan = fa.check_bwd_smem_fit(128)
+    lib = fa.bind_bwd(fa.build.load("flash_attention_bwd"))
+    for which, name in ((0, "dq"), (1, "dkv")):
+        if lib.flash_attention_bwd_smem_bytes(128, which) != \
+                plan[name]["total"]:
+            raise AssertionError(f"{name}: the kernel's shared memory and "
+                                 f"bwd_smem_plan disagree")
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    errs = {"bfloat16": [], "float32": []}
+    for i, (dtype, shape, causal) in enumerate(FLASH_BWD_CASES):
+        inputs = flash_bwd_inputs(shape, dtype, 700 + 2 * i, causal)
+        got = fa.flash_attention_bwd(*inputs, causal)
+        again = fa.flash_attention_bwd(*inputs, causal)
+        want = fa.flash_attention_bwd_plain(*inputs, causal)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not bitwise:
+            raise AssertionError("two flash backward launches on the same "
+                                 "inputs differ")
+        if not all(bool(torch.isfinite(g.float()).all()) for g in got):
+            raise AssertionError("flash backward produced a non-finite "
+                                 "value")
+        err = flash_bwd_errors(got, want)
+        emit({"phase": "check_flash_bwd", "dtype": dtype,
+              "shape_BSHKvD": list(shape), "causal": causal,
+              "bitwise_repeat": bitwise, **err,
+              "bounds": flash_bwd_bounds(dtype),
+              "smem_bytes": {k: v["total"] for k, v in plan.items()}})
+        hold_flash_bwd(err, dtype, f"({dtype}, {shape}, causal={causal})")
+        errs[dtype].append(err)
+    # checking launches are not the main path's
+    fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches = before
+    return {dtype: worst_of(e, FLASH_BWD_ERROR_KEYS)
+            for dtype, e in errs.items()}
+
+
+def param_sample(params) -> list:
+    """The first 65,536 elements of every parameter tensor, copied."""
+    from repro_torch.optim.transform import tree_items
+
+    return [(path, p.detach().reshape(-1)[:65536].clone())
+            for path, p in tree_items(params)]
+
+
+def phase_train() -> dict:
+    """The training path on the card (see the module docstring)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ddpg_learn import ddpg_learn
+    from repro_torch.kernels.episode_learn import episode_learn
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import init_params, model_defs, param_count
+    from repro_torch.optim import global_norm
+    from repro_torch.training import TrainConfig, Trainer, TrainerConfig, \
+        make_grad_fn, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(TRAIN_SEED), "cuda")
+    tx = make_optimizer(cfg)
+    opt_state = tx.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model_defs(cfg))
+    tc = TrainConfig(remat="full", clip_norm=1.0)
+    step_fn = make_train_step(cfg, tx, tc)
+    pipeline = TokenPipeline(vocab_size=cfg.vocab_size,
+                             global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             seed=0)
+
+    def to_batch(b):
+        return {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+    counters = (fa.flash_attention_fwd, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    steps = []
+
+    def counted_step(params, opt_state, batch):
+        sample = param_sample(params)
+        before = [c.launches for c in counters]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved = sum(int((p.detach().reshape(-1)[:x.numel()] != x).sum())
+                    for (_, x), (_, p) in zip(sample, param_sample(params)))
+        steps.append({
+            "wall_ms": dt * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": [c.launches - b for c, b in zip(counters, before)],
+            "sampled_elements_moved": moved,
+            "sampled_elements": sum(x.numel() for _, x in sample)})
+        return params, opt_state, metrics
+
+    trainer = Trainer(counted_step, pipeline, params, opt_state,
+                      TrainerConfig(total_steps=TRAIN_STEPS,
+                                    checkpoint_dir="", log_every=1000),
+                      to_batch=to_batch)
+    for c in counters:
+        c.launches = 0
+    ddpg_learn.launches = episode_learn.launches = 0
+    out = trainer.run()
+    launches = [c.launches for c in counters]
+    if ddpg_learn.launches or episode_learn.launches or \
+            out["step"] != TRAIN_STEPS:
+        raise AssertionError(f"train: {out['step']} steps, or a learner "
+                             f"kernel launched")
+    for i, row in enumerate(steps):
+        where = f"train step {i + 1}"
+        if row["launches"] != [2 * L, L, L]:
+            raise AssertionError(
+                f"{where}: forward / dq / dk-dv launches {row['launches']}, "
+                f"want {[2 * L, L, L]}")
+        if not (math.isfinite(row["loss"])
+                and math.isfinite(row["grad_norm"])):
+            raise AssertionError(f"{where}: loss {row['loss']}, grad_norm "
+                                 f"{row['grad_norm']}")
+        if not row["sampled_elements_moved"]:
+            raise AssertionError(f"{where}: no sampled parameter moved")
+        emit({"phase": "train", "step": i + 1, **row})
+
+    # one more step, the backward kernels held against their plain version
+    # on each layer's own (q, k, v, out, lse, dout)
+    kernel_bwd = ops.flash_attention_bwd
+    layer_errs = []
+
+    def checked_bwd(q, k, v, o, lse, dout, causal=True):
+        got = kernel_bwd(q, k, v, o, lse, dout, causal)
+        layer_errs.append(flash_bwd_errors(
+            got, fa.flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)))
+        return got
+
+    def routed(fwd, bwd, fn):
+        saved = ops.flash_attention_fwd, ops.flash_attention_bwd
+        ops.flash_attention_fwd, ops.flash_attention_bwd = fwd, bwd
+        try:
+            return fn()
+        finally:
+            ops.flash_attention_fwd, ops.flash_attention_bwd = saved
+
+    held_launches = [c.launches for c in counters]
+    batch = to_batch(pipeline.batch(TRAIN_STEPS))
+    _, _, held_metrics = routed(ops.flash_attention_fwd, checked_bwd,
+                                lambda: step_fn(params, opt_state, batch))
+    if len(layer_errs) != L:
+        raise AssertionError(f"train: {len(layer_errs)} checked layers")
+    for i, err in enumerate(layer_errs):
+        hold_flash_bwd(err, "bfloat16", f"(train, layer {i})")
+
+    # the loss and gradient norm of one batch through the kernels and
+    # through their plain versions, from the same parameters: reported
+    grad_fn = make_grad_fn(cfg, tc)
+    batch = to_batch(pipeline.batch(TRAIN_STEPS + 1))
+
+    def loss_and_norm():
+        loss, _, grads = grad_fn(params, batch)
+        return float(loss), float(global_norm(grads))
+
+    kernel_loss, kernel_norm = loss_and_norm()
+    plain_loss, plain_norm = routed(fa.flash_attention_fwd_plain,
+                                    fa.flash_attention_bwd_plain,
+                                    loss_and_norm)
+    for c, n in zip(counters, held_launches):
+        c.launches = n  # checking launches are not counted
+
+    steady = steps[1:] or steps
+    row = {"phase": "train", "arch": cfg.name, "layers": L,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab_size,
+           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "remat": tc.remat, "init_seconds": init_s,
+           "launches_per_step_fwd_dq_dkv": [2 * L, L, L],
+           "launches": launches,
+           "median_wall_ms_after_first": statistics.median(
+               r["wall_ms"] for r in steady),
+           "median_tokens_per_s_after_first": statistics.median(
+               r["tokens_per_s"] for r in steady),
+           "peak_memory_gb": max(r["peak_memory_gb"] for r in steps),
+           "losses": [r["loss"] for r in steps],
+           "held_step": {"loss": float(held_metrics["loss"]),
+                         "grad_norm": float(held_metrics["grad_norm"]),
+                         "layers_held": worst_of(layer_errs,
+                                                 FLASH_BWD_ERROR_KEYS),
+                         "bounds": flash_bwd_bounds("bfloat16")},
+           "vs_plain_versions": {
+               "kernel_loss": kernel_loss, "plain_loss": plain_loss,
+               "loss_abs_gap": abs(kernel_loss - plain_loss),
+               "kernel_grad_norm": kernel_norm, "plain_grad_norm": plain_norm,
+               "grad_norm_rel_gap": abs(kernel_norm - plain_norm)
+               / max(abs(plain_norm), 1e-30)}}
+    emit(row)
+    del params, opt_state, trainer, step_fn
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_profile() -> None:
     """``--profile``: ``torch.profiler`` over the serving path of Yi-9B, for
     each request one prefill and then 3 decode steps (after an untimed
@@ -1073,6 +1402,63 @@ def phase_profile() -> None:
                                   for e in top[:10]]})
 
 
+def phase_profile_train() -> None:
+    """``--profile-train``: ``torch.profiler`` over one training step of
+    phi4-mini-3.8b at the ``train`` phase's size (after one untimed step
+    that warms the libraries): the wall time, the device time of every
+    kernel summed (one stream, so the device's busy time), the busy share,
+    the device time by group (the three flash kernels, cuBLAS products, the
+    rest), and the ten kernels that took longest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import init_params, model_defs
+    from repro_torch.training import TrainConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(TRAIN_SEED), "cuda")
+    tx = make_optimizer(cfg)
+    state = tx.init(params)
+    step = make_train_step(cfg, tx, TrainConfig(remat="full", clip_norm=1.0))
+    pipeline = TokenPipeline(vocab_size=cfg.vocab_size,
+                             global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in pipeline.batch(i).items()} for i in range(2)]
+    params, state, _ = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batches[1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {"flash_fwd_kernel": 0.0, "flash_dq_kernel": 0.0,
+              "flash_dkv_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in kernels:
+        name = next((g for g in groups if g in e.key), None)
+        if name is None:
+            name = "gemm" if any(s in e.key.lower() for s in (
+                "gemm", "cutlass", "xmma", "nvjet")) else "other"
+        groups[name] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    emit({"phase": "profile_train", "arch": cfg.name, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "wall_ms": wall_ms, "device_ms": device_ms,
+          "device_busy_share": device_ms / wall_ms,
+          "device_ms_by_group": groups,
+          "kernel_launches": sum(e.count for e in kernels),
+          "top_kernels": [[e.key[:70], e.self_device_time_total / 1e3,
+                           e.count] for e in top[:10]]})
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -1124,6 +1510,86 @@ def phase_timing_flash(smi: str) -> list:
                "tflops": w["flops"] / kernel_ms / 1e9, "card": smi}
         emit(row)
         rows.append(row)
+    return rows
+
+
+def phase_timing_flash_train(smi: str) -> list:
+    """CUDA-event medians at phi4-mini-3.8b's training shape (bf16,
+    causal): ``flash_attention_fwd``, ``flash_attention_dq`` and
+    ``flash_attention_dkv``, each beside its plain version, its bound
+    (``work``, ``work_bwd``) and PyTorch's
+    ``scaled_dot_product_attention`` (its forward, and its backward, which
+    computes dq, dk and dv in one call; the yardstick only: the port never
+    calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype, shape, causal = FLASH_BWD_CASES[0]
+    B, S, H, Kv, D = shape
+    q, k, v, out, lse, dout = flash_bwd_inputs(shape, dtype, 800, causal)
+    delta = (dout.float() * out.float()).sum(-1)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    try:
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 enable_gqa=True)
+        call = "scaled_dot_product_attention(enable_gqa=True)"
+    except TypeError:  # a PyTorch without enable_gqa: expand k/v first
+        ks, vs = (x.repeat_interleave(H // Kv, dim=1).detach()
+                  .requires_grad_() for x in (k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        call = "scaled_dot_product_attention(k/v expanded)"
+    library_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, **({"enable_gqa": True}
+                                      if "gqa" in call else {})), 20)
+    library_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), dout, retain_graph=True), 20)
+
+    counters = (fa.flash_attention_fwd, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    before = [c.launches for c in counters]
+    runs = (
+        ("flash_attention_fwd", lambda: fa.flash_attention_fwd(q, k, v, True),
+         lambda: fa.flash_attention_fwd_plain(q, k, v, True),
+         fa.work(B, H, Kv, S, D, causal, q.element_size()),
+         library_fwd_ms, call),
+        ("flash_attention_dq",
+         lambda: fa.flash_attention_dq(q, k, v, dout, lse, delta, True),
+         lambda: fa.flash_attention_dq_plain(q, k, v, dout, lse, delta, True),
+         fa.work_bwd(B, H, Kv, S, D, causal, q.element_size())["dq"],
+         library_bwd_ms, call + " backward (dq, dk and dv)"),
+        ("flash_attention_dkv",
+         lambda: fa.flash_attention_dkv(q, k, v, dout, lse, delta, True),
+         lambda: fa.flash_attention_dkv_plain(q, k, v, dout, lse, delta,
+                                              True),
+         fa.work_bwd(B, H, Kv, S, D, causal, q.element_size())["dkv"],
+         library_bwd_ms, call + " backward (dq, dk and dv)"))
+    rows = []
+    for name, kernel, plain, w, library_ms, library_call in runs:
+        kernel_ms = time_ms(kernel, 10)
+        plain_ms = time_ms(plain, 5, warmup=1)
+        flops_ms = w["flops"] / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = w["bytes"] / PEAK_BYTES * 1e3
+        row = {"phase": "timing", "kernel": name, "dtype": dtype,
+               "shape_BSHKvD": list(shape), "causal": causal,
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library_call": library_call,
+               "bound_ms": max(flops_ms, bytes_ms),
+               "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+               "bound_f32_cuda_cores_ms": w["flops"] / PEAK_F32_FLOPS * 1e3,
+               "flops": w["flops"], "bytes": w["bytes"],
+               "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
+               "tflops": w["flops"] / kernel_ms / 1e9, "card": smi}
+        emit(row)
+        rows.append(row)
+    single = fa.work_bwd(B, H, Kv, S, D, causal, q.element_size())
+    emit({"phase": "timing", "kernel": "flash backward, single pass",
+          "bound_ms": max(single["single_pass"]["flops"] / PEAK_BF16_FLOPS,
+                          single["single_pass"]["bytes"] / PEAK_BYTES) * 1e3,
+          **single["single_pass"]})
+    for c, n in zip(counters, before):
+        c.launches = n  # timing launches are not counted
     return rows
 
 
@@ -1277,6 +1743,9 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         phase_profile()
         return 0
+    if sys.argv[1:] == ["--profile-train"]:
+        phase_profile_train()
+        return 0
     configs = {"2d": DDPGConfig(state_dim=12, action_dim=2),
                "8d": DDPGConfig(state_dim=12, action_dim=8)}
     err = phase_check(configs)
@@ -1284,10 +1753,13 @@ def main() -> int:
     tunes = [phase_tune("2d", 30), phase_tune("8d", 30)]
     scans = [phase_tune_scan("2d", EP_STEPS), phase_tune_scan("8d", EP_STEPS)]
     flash_err = phase_check_flash()
+    bwd_err = phase_check_flash_bwd()
     served = phase_serve()
+    trained = phase_train()
     rows = phase_timing(configs, smi)
     ep_rows = phase_timing_episode(smi)
     flash_rows = phase_timing_flash(smi)
+    train_rows = {r["kernel"]: r for r in phase_timing_flash_train(smi)}
 
     main_row = next(r for r in rows
                     if r["space"] == "2d" and r["sessions"] == SEED_SESSIONS)
@@ -1325,7 +1797,9 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
-        "launches": served["launches"],
+        "launches": served["launches"] + trained["launches"][0],
+        "launches_by_path": {"serve": served["launches"],
+                             "train": trained["launches"][0]},
         "max_abs_err": flash_err["out_max_abs_err"],
         "out_rel_err": flash_err["out_rel_err"],
         "bf16_share_over_one_step": flash_err["out_share_over_one_step"],
@@ -1338,7 +1812,39 @@ def main() -> int:
         "shape_BSHKvD": flash_rows[0]["shape_BSHKvD"], "dtype": "bfloat16",
         "at_S4096": {key: flash_rows[1][key] for key in (
             "shape_BSHKvD", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}, "ok": True}]})
+            "library_ms")},
+        "at_training_shape": {key: train_rows["flash_attention_fwd"][key]
+                              for key in ("shape_BSHKvD", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}, "ok": True},
+        *({"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": replaces, "launches": trained["launches"][index],
+           "max_abs_err": max(bwd_err["bfloat16"][f"{g}_max_abs_err"]
+                              for g in grads),
+           "rel_err": {g: bwd_err["bfloat16"][f"{g}_rel_err"] for g in grads},
+           "bf16_share_over_one_step": {
+               g: bwd_err["bfloat16"][f"{g}_share_over_one_step"]
+               for g in grads},
+           "f32_rel_err": {g: bwd_err["float32"][f"{g}_rel_err"]
+                           for g in grads},
+           "train_layers_held": {
+               key: trained["held_step"]["layers_held"][key]
+               for key in FLASH_BWD_ERROR_KEYS if key[:2] in grads},
+           "ms": train_rows[name]["ms"],
+           "plain_ms": train_rows[name]["plain_ms"],
+           "bound_ms": train_rows[name]["bound_ms"],
+           "bound_by": train_rows[name]["bound_by"],
+           "library_ms": train_rows[name]["library_ms"],
+           "library_call": train_rows[name]["library_call"],
+           "shape_BSHKvD": train_rows[name]["shape_BSHKvD"],
+           "dtype": "bfloat16", "ok": True}
+          for name, replaces, index, grads in (
+              ("flash_attention_dq", "src/repro/kernels/flash_attention.py:124",
+               1, ("dq",)),
+              ("flash_attention_dkv",
+               "src/repro/kernels/flash_attention.py:160", 2,
+               ("dk", "dv"))))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

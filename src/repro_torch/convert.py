@@ -14,7 +14,9 @@ the reference's NamedTuples and this module's look-alikes both convert.
 The episode engine's other state converts the same way, from numpy: the
 Lustre model's env state (uint32 key words, warmth, last values) and
 parameters, and the replay window (``BufferState``). With these both
-packages can step from the same state.
+packages can step from the same state. So do the LM stack's parameters
+(``lm_params_from_jax``), serving cache and AdamW state
+(``adamw_state_from_jax``).
 """
 
 from __future__ import annotations
@@ -157,3 +159,32 @@ def lm_cache_from_jax(tree, device=None) -> dict:
     """The JAX package's serving cache (``{"k", "v"}`` of
     ``[L, B, S_max, Kv, Dh]``) as the port's, on ``device``."""
     return _tree_from_numpy(tree, resolve_device(device))
+
+
+def adamw_state_from_jax(tree, device=None) -> tuple:
+    """The JAX package's optimizer state of a ``chain`` (numpy or jax
+    leaves) as the port's, on ``device``: ``ScaleByAdamState(count, mu,
+    nu)`` and ``ScaleByScheduleState(count)`` by their fields, the
+    stateless members' ``()`` as they are. For ``adamw`` that is
+    ``(ScaleByAdamState, (), ())``; with ``lm_params_from_jax`` both
+    packages can then step from one state."""
+    from repro_torch.optim.transform import ScaleByAdamState, \
+        ScaleByScheduleState
+
+    device = resolve_device(device)
+
+    def member(state):
+        fields = getattr(state, "_fields", ())
+        if fields == ("count", "mu", "nu"):
+            return ScaleByAdamState(_tensor_from_numpy(state.count, device),
+                                    _tree_from_numpy(state.mu, device),
+                                    _tree_from_numpy(state.nu, device))
+        if fields == ("count",):
+            return ScaleByScheduleState(_tensor_from_numpy(state.count,
+                                                           device))
+        if state == ():
+            return ()
+        raise ValueError(f"no port counterpart of optimizer state "
+                         f"{type(state).__name__}")
+
+    return tuple(member(s) for s in tree)

@@ -1,5 +1,5 @@
-"""Causal GQA flash attention, forward: the CUDA kernel's wrapper, its plain
-PyTorch version, and the work it does.
+"""Causal GQA flash attention, forward and backward: the CUDA kernels'
+wrappers, their plain PyTorch versions, and the work they do.
 
 ``flash_attention_fwd`` launches ``csrc/flash_attention_fwd.cu`` (one
 thread block per batch row, head and block of 64 queries, the key/value
@@ -11,15 +11,26 @@ kernel's numerics (float32 scores from q upcast and pre-scaled, float32
 runs (``kernels.ops.attention``) and what the kernel is held against on the
 card.
 
-Both take the kernel layout, q ``[B, H, Sq, D]`` and k, v ``[B, Kv, Sk, D]``
-(H a multiple of Kv; query head h reads key/value head ``h // (H // Kv)``),
-float32 or bfloat16, contiguous, and return ``(out [B, H, Sq, D]`` in q's
-type, ``lse [B, H, Sq]`` float32``)``. The causal mask compares absolute
-positions from 0 (``kpos <= qpos``).
+``flash_attention_bwd`` computes ``delta = rowsum(dout * out)`` in plain
+PyTorch, as the JAX package does outside its kernels, then launches the two
+kernels of ``csrc/flash_attention_bwd.cu``: ``flash_attention_dq`` (one
+block per batch row, query head and 64 queries; replaces ``_dq_kernel``,
+``flash_attention.py:124``) and ``flash_attention_dkv`` (one block per batch
+row, key/value head and 64 keys, looping over the group's query heads;
+replaces ``_dkv_kernel``, ``flash_attention.py:160``).
+``flash_attention_bwd_plain`` is their plain version, in their op order.
 
-Bound (``work``): the operations over the card's bf16 tensor rate (989
-TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger; the kernel's own
-products run on the float32 CUDA cores (67 TFLOP/s).
+All take the kernel layout, q ``[B, H, Sq, D]`` and k, v ``[B, Kv, Sk, D]``
+(H a multiple of Kv; query head h reads key/value head ``h // (H // Kv)``),
+float32 or bfloat16, contiguous. The forward returns ``(out [B, H, Sq, D]``
+in q's type, ``lse [B, H, Sq]`` float32``)``; the backward takes out, lse
+and ``dout`` (out's shape and type) and returns ``(dq, dk, dv)`` in the
+types of q, k, v. The causal mask compares absolute positions from 0
+(``kpos <= qpos``).
+
+Bounds (``work``, ``work_bwd``): the operations over the card's bf16 tensor
+rate (989 TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger; the
+kernels' own products run on the float32 CUDA cores (67 TFLOP/s).
 """
 
 from __future__ import annotations
@@ -174,3 +185,261 @@ def work(B: int, H: int, Kv: int, S: int, D: int, causal: bool,
     return {"flops": 4 * B * H * D * pairs,
             "bytes": itemsize * (2 * B * H * S * D + 2 * B * Kv * S * D)
             + 4 * B * H * S}
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+#: dynamic shared memory a block may use on the H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: row stride (floats) of the backward's transposed tiles and p / ds tile
+SMEM_LD = 68
+
+
+def bwd_smem_plan(D: int) -> dict:
+    """Bytes of dynamic shared memory one block of each backward kernel uses
+    at head dim ``D``, by part, in the order the parts lie in shared memory
+    (``csrc/flash_attention_bwd.cu``, ``dq_smem_floats`` and
+    ``dkv_smem_floats``), with the ``total`` of each."""
+    transposed = 4 * D * SMEM_LD           # a [d][row] float32 tile
+    rows = 4 * BLOCK_K * D                 # a [row][d] float32 tile
+    square = 4 * BLOCK_Q * SMEM_LD         # the p / ds tile
+    stats = 4 * 2 * BLOCK_Q                # lse and delta of the rows
+    dq = {"q_s, do, k, v transposed": 4 * transposed, "k rows": rows,
+          "dq accumulator": rows, "ds transposed": square,
+          "lse, delta": stats}
+    dkv = {"k, v transposed": 2 * transposed,
+           "q_s then do transposed": transposed,
+           "do then q_s / scale rows": rows, "dk, dv accumulators": 2 * rows,
+           "p then ds": square, "lse, delta": stats}
+    return {name: {**parts, "total": sum(parts.values())}
+            for name, parts in (("dq", dq), ("dkv", dkv))}
+
+
+def check_bwd_smem_fit(D: int) -> dict:
+    """``bwd_smem_plan(D)``; raises ``ValueError`` when a kernel's block
+    would need more than the ``SMEM_LIMIT`` bytes a block may use."""
+    plan = bwd_smem_plan(D)
+    for name, parts in plan.items():
+        if parts["total"] > SMEM_LIMIT:
+            top = sorted(((v, k) for k, v in parts.items() if k != "total"),
+                         reverse=True)[:3]
+            raise ValueError(
+                f"flash_attention_{name}: {parts['total']:,} B of shared "
+                f"memory per block at head dim {D}, over the "
+                f"{SMEM_LIMIT:,} B a block may use (largest parts: "
+                + ", ".join(f"{k} {v:,} B" for v, k in top) + ")")
+    return plan
+
+
+def _check_bwd(q, k, v, out, lse, dout) -> tuple:
+    """``_check`` plus out, dout (q's shape and type) and lse (float32
+    ``[B, H, Sq]``) on q's device."""
+    dims = _check(q, k, v)
+    B, H, _, Sq, _, _ = dims
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must match q ({tuple(q.shape)}, "
+                             f"{q.dtype}), got {tuple(t.shape)}, {t.dtype}")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [{B}, {H}, {Sq}], got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    for t in (out, lse, dout):
+        if t.device != q.device:
+            raise ValueError(f"out, lse, dout must lie on q's device "
+                             f"{q.device}, got {t.device}")
+    return dims
+
+
+def _check_bwd_kernel(q, k, v, dout, lse, delta) -> tuple:
+    """What the backward kernels take: ``_check_kernel``, a contiguous
+    dout, float32 contiguous lse and delta, CUDA tensors, and a block that
+    fits in shared memory."""
+    _check_bwd(q, k, v, dout, lse, dout)       # dout and lse against q
+    dims = _check_kernel(q, k, v)
+    if tuple(delta.shape) != tuple(lse.shape) or \
+            delta.dtype != torch.float32 or delta.device != q.device:
+        raise ValueError(f"delta must be float32 {tuple(lse.shape)} on "
+                         f"{q.device}, got {tuple(delta.shape)} "
+                         f"{delta.dtype} on {delta.device}")
+    for name, t in (("dout", dout), ("lse", lse), ("delta", delta)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not q.is_cuda:
+        raise ValueError("the flash backward kernels take CUDA tensors; use "
+                         "flash_attention_bwd_plain on the CPU")
+    check_bwd_smem_fit(dims[-1])
+    return dims
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of the backward library's
+    functions (the two launchers and ``flash_attention_bwd_smem_bytes(D,
+    which)``, which gives the bytes of one block, 0 = dq, 1 = dk/dv)."""
+    for name, outputs in (("flash_attention_dq_launch", 1),
+                          ("flash_attention_dkv_launch", 2)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * (6 + outputs) + \
+                [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def _launch_bwd(name: str, q, k, v, dout, lse, delta, outputs, dims,
+                causal: bool) -> None:
+    B, H, Kv, Sq, Sk, D = dims
+    lib = bind_bwd(build.load("flash_attention_bwd"))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, f"flash_attention_{name}_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outputs), B, H, Kv, Sq, Sk, D,
+            int(causal), int(q.dtype == torch.bfloat16), scale_of(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_{name}: kernel launch failed "
+                           f"with CUDA error {err}")
+
+
+def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool = True):
+    """dq in ONE launch of ``flash_dq_kernel`` on the current stream, from
+    ``delta = rowsum(dout * out)`` (float32 ``[B, H, Sq]``). Raises on a
+    tensor the kernel does not take and on a refused launch.
+    ``flash_attention_dq.launches`` counts launches."""
+    dims = _check_bwd_kernel(q, k, v, dout, lse, delta)
+    dq = torch.empty_like(q)
+    if dq.numel():
+        _launch_bwd("dq", q, k, v, dout, lse, delta, (dq,), dims, causal)
+        flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool = True):
+    """``(dk, dv)`` in ONE launch of ``flash_dkv_kernel``; as
+    ``flash_attention_dq`` otherwise. ``flash_attention_dkv.launches``
+    counts launches."""
+    dims = _check_bwd_kernel(q, k, v, dout, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel():
+        _launch_bwd("dkv", q, k, v, dout, lse, delta, (dk, dv), dims, causal)
+        flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
+    """The backward pass on the card: ``delta = rowsum(dout * out)`` in
+    float32 (plain PyTorch), then one launch of each kernel,
+    ``flash_attention_dq`` and ``flash_attention_dkv``. Returns
+    ``(dq, dk, dv)``. Raises on a tensor the kernels do not take (not on the
+    card, another dtype, a head dim that is not a multiple of 8 in
+    [8, 128], a sequence length that is not a multiple of 64, a
+    non-contiguous layout) and on a refused launch; it never runs the plain
+    version. ``flash_attention_bwd.launches`` counts calls (each launches
+    both kernels)."""
+    _check_bwd(q, k, v, out, lse, dout)
+    if not q.is_cuda:
+        raise ValueError("flash_attention_bwd launches the CUDA kernels and "
+                         "takes CUDA tensors; use flash_attention_bwd_plain "
+                         "on the CPU")
+    delta = (dout.float() * out.float()).sum(-1)
+    dq = flash_attention_dq(q, k, v, dout, lse, delta, causal)
+    dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta, causal)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _bwd_plain(q, k, v, dout, lse, delta, causal: bool, want_dq: bool,
+               want_dkv: bool) -> tuple:
+    """The plain backward from ``delta``: ``(dq, dk, dv)``, None for the
+    parts not wanted; see ``flash_attention_bwd_plain``."""
+    B, H, Kv, Sq, Sk, D = _check_bwd(q, k, v, dout, lse, dout)
+    if q.is_cuda and (torch.backends.cuda.matmul.allow_tf32 or
+                      torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("flash_attention_bwd_plain needs full float32 "
+                           "products: turn TF32 off")
+    g = H // Kv
+    # a tensor, not a Python float: the card multiplies by the reciprocal
+    # of a Python-float divisor
+    scale = torch.tensor(scale_of(D), device=q.device)
+    qs = (q.float() * scale).reshape(B, Kv, g, Sq, D)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    dof = dout.float().reshape(B, Kv, g, Sq, D)
+    s = torch.matmul(qs, kf.transpose(-1, -2))           # [B, Kv, g, Sq, Sk]
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        s.masked_fill_(kpos > qpos, -math.inf)
+    p = s.sub_(lse.reshape(B, Kv, g, Sq, 1)).exp_()      # in place of s
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(dim=2).to(v.dtype) \
+        if want_dkv else None
+    ds = torch.matmul(dof, vf.transpose(-1, -2)).sub_(
+        delta.reshape(B, Kv, g, Sq, 1)).mul_(p)
+    del p
+    dq = dk = None
+    if want_dq:
+        dq = (torch.matmul(ds, kf) * scale).reshape(B, H, Sq, D).to(q.dtype)
+    if want_dkv:
+        dk = (torch.matmul(ds.transpose(-1, -2), qs / scale) * scale) \
+            .sum(dim=2).to(k.dtype)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):
+    """The backward in plain PyTorch, in the TPU kernels' op order:
+    ``delta = rowsum(dout * out)`` (float32), ``q_s = q * scale``,
+    ``p = exp(q_s k^T - lse)`` (masked entries 0), ``dp = do v^T``,
+    ``ds = p (dp - delta)``, ``dq = (ds k) * scale``,
+    ``dv = sum_heads p^T do`` and ``dk = sum_heads (ds^T (q_s / scale)) *
+    scale``, each cast once to its input's type. Materializes
+    ``[B, H, Sq, Sk]`` float32 tensors. On the card its float32 products
+    must not run in TF32, so it refuses to run when TF32 is on. Returns
+    ``(dq, dk, dv)``."""
+    _check_bwd(q, k, v, out, lse, dout)
+    delta = (dout.float() * out.float()).sum(-1)
+    return _bwd_plain(q, k, v, dout, lse, delta, causal, True, True)
+
+
+def flash_attention_dq_plain(q, k, v, dout, lse, delta, causal: bool = True):
+    """``flash_attention_dq``'s plain version: dq alone, from delta."""
+    return _bwd_plain(q, k, v, dout, lse, delta, causal, True, False)[0]
+
+
+def flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal: bool = True):
+    """``flash_attention_dkv``'s plain version: ``(dk, dv)``, from delta."""
+    return _bwd_plain(q, k, v, dout, lse, delta, causal, False, True)[1:]
+
+
+def work_bwd(B: int, H: int, Kv: int, S: int, D: int, causal: bool,
+             itemsize: int) -> dict:
+    """Operations and device-memory bytes of the backward at ``Sq = Sk =
+    S``, from the shapes alone, per kernel and for a single-pass backward.
+    Per query-key pair (a multiply-add counts 2): ``dq`` needs ``s``,
+    ``dp`` and ``ds k`` (6 D); ``dkv`` needs ``s``, ``dp``, ``p^T do`` and
+    ``ds^T q`` (8 D); one pass computing all three needs 10 D. Bytes: each
+    input read once, each output written once: ``dq`` reads q, k, v, do,
+    lse, delta and writes dq; ``dkv`` reads the same and writes dk, dv;
+    ``single_pass`` reads q, k, v, do, lse, delta and writes dq, dk, dv."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    q_bytes = itemsize * B * H * S * D
+    kv_bytes = itemsize * B * Kv * S * D
+    stats = 2 * 4 * B * H * S
+    reads = 2 * q_bytes + 2 * kv_bytes + stats
+    return {"dq": {"flops": 6 * B * H * D * pairs,
+                   "bytes": reads + q_bytes},
+            "dkv": {"flops": 8 * B * H * D * pairs,
+                    "bytes": reads + 2 * kv_bytes},
+            "single_pass": {"flops": 10 * B * H * D * pairs,
+                            "bytes": reads + q_bytes + 2 * kv_bytes}}

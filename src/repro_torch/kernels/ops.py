@@ -11,8 +11,8 @@ from repro_torch.core.ddpg import DDPGConfig, DDPGState
 from repro_torch.kernels.ddpg_learn import ddpg_learn, ddpg_learn_plain
 from repro_torch.kernels.episode_learn import EpisodeKernelSpec, \
     EpisodeOperands, episode_learn, episode_learn_plain
-from repro_torch.kernels.flash_attention import flash_attention_fwd, \
-    flash_attention_fwd_plain
+from repro_torch.kernels.flash_attention import flash_attention_bwd, \
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain
 
 #: ``attention`` takes sequence lengths that are multiples of this, as the
 #: JAX package's ``kernels/ops.py::attention`` routes to its kernel
@@ -43,22 +43,51 @@ def episode_inner_loop(operands: EpisodeOperands, *,
     raise ValueError(f"no episode kernel for device {device}")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention in the kernel layout with its gradient. The forward
+    and the backward are looked up by their names in this module at each
+    call (``flash_attention_fwd``, ``flash_attention_bwd``), so a caller
+    may swap what they run. The saved ``q, k, v, out, lse`` go through
+    ``ctx.save_for_backward``: under non-reentrant activation checkpointing
+    they are those of the recomputed forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cuda":
+            out, lse = flash_attention_fwd(q, k, v, causal)
+        else:
+            out, lse = flash_attention_fwd_plain(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cuda":
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                             ctx.causal)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                   ctx.causal)
+        return dq, dk, dv, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """Flash attention in the model layout (``kernels.flash_attention``):
-    q ``[B, S, H, D]``, k/v ``[B, Sk, Kv, D]`` -> ``[B, S, H, D]``. Needs
-    ``D >= 8`` and both sequence lengths multiples of 128; transposes to the
-    kernel layout ``[B, H, S, D]`` and back."""
+    q ``[B, S, H, D]``, k/v ``[B, Sk, Kv, D]`` -> ``[B, S, H, D]``,
+    differentiable. Needs ``D >= 8`` and both sequence lengths multiples of
+    128; transposes to the kernel layout ``[B, H, S, D]`` and back. On a
+    CUDA tensor the forward and the backward are the kernels, on a CPU
+    tensor their plain versions."""
     S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
     if S % ATTENTION_BLOCK or Sk % ATTENTION_BLOCK or D < 8:
         raise ValueError(f"flash attention takes sequence lengths that are "
                          f"multiples of {ATTENTION_BLOCK} and a head dim of "
                          f"at least 8, got {S}, {Sk} and {D}")
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    if q.device.type == "cuda":
-        out, _ = flash_attention_fwd(qt, kt, vt, causal)
-    elif q.device.type == "cpu":
-        out, _ = flash_attention_fwd_plain(qt, kt, vt, causal)
-    else:
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no flash attention for device {q.device}")
-    return out.transpose(1, 2)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return _FlashAttention.apply(qt, kt, vt, causal).transpose(1, 2)

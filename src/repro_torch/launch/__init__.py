@@ -1,1 +1,2 @@
-"""Launch entry points of the port: serving (``launch.serve``)."""
+"""Launch entry points of the port: serving (``launch.serve``) and
+training (``launch.train``)."""

@@ -3,29 +3,33 @@ or GELU MLP), with the serving entry points.
 
 Layers are stacked along a leading ``layers`` axis, as in the JAX package
 (``repro/models/transformer.py``); where JAX scans over the stack, the port
-runs a Python loop over the views ``p[l]`` of the stacked tensors. Caches
-follow the same stacking.
+runs a Python loop over the per-layer views of the stacked tensors, taken
+once per call with ``torch.unbind`` (so that autograd stacks the layers'
+gradients once, instead of building one full-size gradient per layer and
+summing them). Caches follow the same stacking.
 
 Entry points:
     model_defs(cfg)                          -> ParamDef tree
     cache_spec(cfg, batch, max_seq)          -> ParamDef tree of the cache
     make_cache(cfg, batch, max_seq, device)  -> cache (zeros)
     abstract_cache(cfg, batch, max_seq)      -> cache on the ``meta`` device
+    forward(cfg, params, tokens, ...)        -> (logits, aux)  [training]
     prefill(cfg, params, tokens, cache)      -> (last-token logits, cache)
     decode_step(cfg, params, tok, cache, i)  -> (logits, cache)
 
 The cache is updated IN PLACE (the JAX version is pure: its
 ``dynamic_update_slice`` returns a new cache); both functions return the
 dict they were given. The other families (MoE, MLA, SSM, hybrid, enc-dec)
-and the training ``forward`` are not ported yet: they raise naming their
-ROADMAP row.
+raise naming their ROADMAP row.
 """
 
 from __future__ import annotations
 
 import operator
+from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import gqa_apply, gqa_defs, rope_angles
@@ -124,10 +128,12 @@ def _default_positions(batch: int, seq: int, offset=0,
     return pos.expand(batch, seq)
 
 
-def _layer(tree: dict, index: int) -> dict:
-    """Views ``t[index]`` of every tensor of a stacked tree."""
-    return {k: _layer(v, index) if isinstance(v, dict) else v[index]
+def _unstack(tree: dict, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree: ``torch.unbind`` of
+    every tensor, once."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
             for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
 
 
 def _attn_mlp_layer(cfg: ArchConfig, angles, impl, cache_index):
@@ -143,14 +149,34 @@ def _attn_mlp_layer(cfg: ArchConfig, angles, impl, cache_index):
     return layer_fn
 
 
+#: the JAX package's ``remat`` policies that the port runs
+REMAT = ("none", "full")
+
+
 def _stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
-           caches=None, cache_index=None, impl="auto"):
-    """Runs the layer stack, layer by layer. Returns (hidden, caches)."""
+           caches=None, cache_index=None, impl="auto", remat="none"):
+    """Runs the layer stack, layer by layer. Returns (hidden, caches).
+
+    ``remat="full"`` wraps each layer in non-reentrant activation
+    checkpointing (the counterpart of ``jax.checkpoint``): a layer keeps only
+    its input, and its forward runs again during the backward pass.
+    ``"dots"`` (JAX's ``dots_with_no_batch_dims_saveable``) is not ported."""
+    if remat == "dots":
+        raise NotImplementedError("remat='dots' is not ported yet: ROADMAP "
+                                  "A11 (training options)")
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r}; choose from {REMAT} "
+                         f"or 'dots'")
     layer_fn = _attn_mlp_layer(cfg, angles, impl, cache_index)
-    for index in range(cfg.num_layers):
+    layers = _unstack(params["layers"], cfg.num_layers)
+    for index, lp in enumerate(layers):
         lc = None if caches is None else \
             {"k": caches["k"][index], "v": caches["v"][index]}
-        x = layer_fn(x, _layer(params["layers"], index), lc)
+        if remat == "full" and lc is None:
+            x = checkpoint(layer_fn, x, lp, None, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer_fn(x, lp, lc)
     return x, caches
 
 
@@ -164,6 +190,30 @@ def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 def _angles(cfg: ArchConfig, positions) -> torch.Tensor:
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
                        cfg.mrope_sections)
+
+
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            input_embeds: Optional[torch.Tensor] = None,
+            attn_impl: str = "auto", remat: str = "none") -> tuple:
+    """Full-sequence forward (training / evaluation): ``(logits [B, S, V],
+    aux)``, aux the float32 0-d auxiliary loss (0 for the dense family, as
+    in the JAX package). ``input_embeds`` ``[B, S, d_model]`` replaces the
+    token embedding when given; ``positions`` ``[B, S]`` default to
+    ``0..S-1``. (The JAX version's ``unroll`` tunes its layer scan; a
+    Python layer loop has none.)"""
+    _require_ported(cfg)
+    B, S = tokens.shape[:2]
+    if input_embeds is not None:
+        x = input_embeds.to(cfg.compute_dtype)
+    else:
+        x = params["embed"]["tok"][tokens].to(cfg.compute_dtype)
+    if positions is None:
+        positions = _default_positions(B, S, device=tokens.device)
+    x, _ = _stack(cfg, params, x, angles=_angles(cfg, positions),
+                  impl=attn_impl, remat=remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x), aux
 
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache, *,

@@ -49,6 +49,23 @@ def test_the_lm_serving_slice_is_covered():
     assert (PORT / "kernels" / "csrc" / "flash_attention_fwd.cu").exists()
 
 
+def test_the_training_slice_is_covered():
+    """The import checks below walk the training slice's modules and the
+    flash-attention backward kernel too."""
+    mods = _port_modules()
+    for name in ("repro_torch.optim.transform", "repro_torch.optim.adamw",
+                 "repro_torch.optim.schedule", "repro_torch.optim.adafactor",
+                 "repro_torch.training.losses", "repro_torch.training.steps",
+                 "repro_torch.training.trainer", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.store", "repro_torch.launch.train",
+                 "repro_torch.models.transformer", "repro_torch.convert",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.ops"):
+        assert name in mods, name
+    assert (PORT / "kernels" / "csrc" / "flash_attention_bwd.cu").exists()
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
@@ -107,6 +124,14 @@ except RuntimeError as e:
 else:
     raise AssertionError("serve without a card and without device= ran")
 assert serve(cfg, [[1] * 128], 2, device="cpu").tokens.shape == (1, 2)
+from repro_torch.launch.train import main as train_main
+try:
+    train_main(["--smoke", "--steps", "1"])
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("training without a card and without --device ran")
+assert train_main(["--smoke", "--steps", "1", "--device", "cpu"])["step"] == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

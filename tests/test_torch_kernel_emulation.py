@@ -18,7 +18,10 @@ and cursors EXACT, floats within 2e-6 relative (measured 4.5e-7);
 ``flash_attention_fwd`` float32 out and lse within 2e-6 relative (measured
 4.8e-7 and 1.6e-7), bfloat16 out within one bf16 ulp of its largest value
 (2^-7 relative; measured 4.1e-5: 0.04 % of the elements round the other
-way) and lse within 2e-6.
+way) and lse within 2e-6; ``flash_attention_bwd`` (dq and dk/dv) float32
+within 2e-6 relative (measured 4.2e-7), bfloat16 within one bf16 ulp of
+the largest value (2^-7 relative; measured 3.0e-4: a few elements round
+the other way).
 """
 
 import ctypes
@@ -41,8 +44,8 @@ from repro_torch.envs.lustre_model import LustreEnvState
 from repro_torch.kernels import build
 from repro_torch.kernels import episode_learn as el
 from repro_torch.kernels.ddpg_learn import _hyper, ddpg_learn_plain
-from repro_torch.kernels.flash_attention import flash_attention_fwd_plain, \
-    scale_of
+from repro_torch.kernels.flash_attention import bind_bwd, bwd_smem_plan, \
+    flash_attention_bwd_plain, flash_attention_fwd_plain, scale_of
 
 STUB = r"""
 #pragma once
@@ -126,7 +129,7 @@ def emulated(tmp_path_factory):
         src, count = LAUNCH.subn(
             r"for (blockIdx.x = 0; blockIdx.x < (unsigned)n; ++blockIdx.x) "
             r"\1(", src)
-        assert count == 1, name
+        assert count >= 1, name
         (out / f"{name}.cpp").write_text(src)
         lib = out / f"lib{name}.so"
         subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off",
@@ -279,7 +282,43 @@ def test_flash_attention_fwd_source_matches_plain(emulated, causal, dtype):
               got_lse.data_ptr(), B, H, Kv, 96, 96, D, 1, 0, 1.0, None) == -1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_source_matches_plain(emulated, causal, dtype):
+    """Both backward kernels at two query and two key blocks of 64 (the
+    causal dq loop stops at the diagonal, the dk/dv loop starts there), GQA
+    with two query heads per key/value head, two batch rows; out and lse
+    from the forward's plain version, delta as the wrapper computes it."""
+    B, H, Kv, S, D = 2, 4, 2, 128, 16
+    rng = np.random.default_rng(6)
+    q, k, v, dout = (torch.tensor(rng.standard_normal(shape), dtype=dtype)
+                     for shape in ((B, H, S, D), (B, Kv, S, D),
+                                   (B, Kv, S, D), (B, H, S, D)))
+    out, lse = flash_attention_fwd_plain(q, k, v, causal)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    delta = (dout.float() * out.float()).sum(-1)
+    lib = bind_bwd(emulated["flash_attention_bwd"])
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    args = [q, k, v, dout, lse, delta]
+    for name, outs in (("dq", (dq,)), ("dkv", (dk, dv))):
+        fn = getattr(lib, f"flash_attention_{name}_launch")
+        ptrs = [t.data_ptr() for t in (*args, *outs)]
+        assert fn(*ptrs, B, H, Kv, S, S, D, int(causal),
+                  int(dtype == torch.bfloat16), scale_of(D), None) == 0
+        assert fn(*ptrs, B, H, Kv, 96, 96, D, 1, 0, 1.0, None) == -1
+    tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == ref.dtype
+        assert _rel(got, ref) <= tol
+    sizes = lib.flash_attention_bwd_smem_bytes
+    for d in (16, 64, 128):
+        plan = bwd_smem_plan(d)
+        assert sizes(d, 0) == plan["dq"]["total"]
+        assert sizes(d, 1) == plan["dkv"]["total"]
+
+
 def test_the_emulation_covers_every_source():
     assert build.sources() == ["ddpg_learn", "episode_learn",
-                               "flash_attention_fwd"]
+                               "flash_attention_bwd", "flash_attention_fwd"]
     assert pathlib.Path(build.CSRC / "ddpg_update.cuh").exists()
