@@ -92,13 +92,33 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   the loss and grad_norm of one batch through the kernels
                   and through their plain versions (reported, not held:
                   random weights at this depth amplify rounding);
- 11. timing       CUDA-event medians of every kernel and its plain version:
+ 11. check_gmm    the ``gmm`` kernel against its plain version on the same
+                  numpy inputs: bfloat16 at deepseek-moe-16b's two serving
+                  products (E 64, C 1920, D 2048 -> F 1408 and D 1408 -> F
+                  2048), float32 at E 4, C 256, D 640, F 384; held within
+                  ``GMM_*`` below, two launches bitwise equal;
+ 12. serve_moe    the MoE serving path, ``repro_torch.launch.serve.serve`` on
+                  deepseek-moe-16b at its published size in bfloat16 (random
+                  weights from a seeded ``torch.Generator`` on the card): 4
+                  prompts x 4096 tokens -> 8 greedy tokens, whose prefill
+                  must launch ``gmm`` exactly 84 times (gate, up and down of
+                  28 layers: the expert capacity 1,920 is a multiple of 128)
+                  and the flash forward 28 times, then 4 x 512 -> 8 (capacity
+                  240: no ``gmm`` launch, the experts take einsum as in the
+                  JAX package; 28 flash launches); no decode step launches
+                  either kernel. Then the 4 x 4096 prefill once more with the
+                  kernel held against its plain version on each layer's own
+                  gate, up and down inputs (the ``GMM_*`` bf16 bounds), and
+                  through the plain version: the last-token logits' gap is
+                  reported, not held (random weights amplify rounding);
+ 13. timing       CUDA-event medians of every kernel and its plain version:
                   the learners at N = 1 and N = 1024 (the episode's plain
                   version at N = 1 only, its pre-draw timed apart), the flash
                   forward at the two serving shapes beside PyTorch's
-                  ``scaled_dot_product_attention`` on the same tensors, and
-                  the flash forward, dq and dk/dv at the training shape
-                  beside SDPA's forward and backward; each beside the bound
+                  ``scaled_dot_product_attention`` on the same tensors, the
+                  flash forward, dq and dk/dv at the training shape beside
+                  SDPA's forward and backward, and ``gmm`` at the two MoE
+                  serving shapes beside ``torch.bmm``; each beside the bound
                   from the shapes.
 
 Then the ``{"kernels": [...]}`` line, ``nvidia-smi``'s line, and last
@@ -106,7 +126,7 @@ Then the ``{"kernels": [...]}`` line, ``nvidia-smi``'s line, and last
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
-Phases 1-8 and the matching timings are the earlier slices' and run as
+Phases 1-10 and the matching timings are the earlier slices' and run as
 they did.
 
     python3 chip_smoke.py --profile
@@ -231,6 +251,33 @@ TRAIN_BATCH = 2
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 4
 TRAIN_SEED = 0
+#: gmm kernel vs its plain version on the same inputs, as
+#: max|kernel - plain| / max|plain| (float32 within GMM_F32_RTOL; bfloat16
+#: within GMM_BF16_RTOL, one bf16 step of the largest value, and at most
+#: GMM_BF16_OFF_SHARE of the elements further apart than one bf16 step of
+#: the plain value: the two sum the same exact products in another float32
+#: order, so after the one rounding to bf16 a few elements land on the
+#: neighbouring value, and sums that cancel to near 0 carry the order's
+#: error of the large terms). Measured on an H100 before they were pinned
+#: (PERF.md): float32 6.4e-7; bf16 5.5e-3 and 1.5e-5 of the elements
+#: over one step at the serving shapes, 5.6e-3 and 1.3e-5 on the 84
+#: products of a deepseek-moe-16b prefill
+GMM_F32_RTOL = 1e-5
+GMM_BF16_RTOL = 2.0 ** -7
+GMM_BF16_OFF_SHARE = 1e-3
+#: (dtype, (E, C, D, F)): deepseek-moe-16b's two serving products at 4 x
+#: 4096 tokens (gate / up, then down) in bf16, then a small float32 shape
+#: whose D is a multiple of 128 but not of 512
+GMM_CASES = (("bfloat16", (64, 1920, 2048, 1408)),
+             ("bfloat16", (64, 1920, 1408, 2048)),
+             ("float32", (4, 256, 640, 384)))
+#: the MoE serving requests: (batch, prompt tokens, generated tokens). At
+#: 4 x 4096 the expert capacity C is 1,920, a multiple of 128: the experts
+#: run through gmm (3 launches per layer); at 4 x 512 C is 240 and they
+#: take einsum, as in the JAX package
+MOE_REQUESTS = ((4, 4096, 8), (4, 512, 8))
+MOE_ARCH = "deepseek-moe-16b"
+MOE_SEED = 0
 
 
 def emit(obj) -> None:
@@ -1344,6 +1391,303 @@ def phase_train() -> dict:
     return row
 
 
+def gmm_inputs(shape, dtype, seed: int):
+    """x [E, C, D] standard normal and w [E, D, F] scaled by 1/sqrt(D), from
+    numpy, on the card in ``dtype``."""
+    import numpy as np
+    import torch
+
+    E, C, D, F = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((E, C, D), np.float32)
+    w = rng.standard_normal((E, D, F), np.float32) / np.float32(math.sqrt(D))
+    return tuple(torch.as_tensor(a).to("cuda", getattr(torch, dtype))
+                 for a in (x, w))
+
+
+def gmm_errors(out, plain) -> dict:
+    """The kernel's out against the plain version's: max|a - b| / max|b|
+    and max|a - b|; for bfloat16 also the shares of the elements that
+    differ at all and by more than one bf16 step of the plain value."""
+    import torch
+
+    err = {"rel_err": rel_err(out, plain),
+           "max_abs_err": float((out.float() - plain.float()).abs().max())}
+    if out.dtype == torch.bfloat16:
+        steps = bf16_steps(out, plain)
+        err["share_differing"] = float((steps > 0).float().mean())
+        err["share_over_one_step"] = float((steps > 1).float().mean())
+    return err
+
+
+def gmm_bounds(dtype: str) -> dict:
+    if dtype == "bfloat16":
+        return {"rel_err": GMM_BF16_RTOL,
+                "share_over_one_step": GMM_BF16_OFF_SHARE}
+    return {"rel_err": GMM_F32_RTOL}
+
+
+def hold_gmm(err: dict, where: str) -> None:
+    """Raise unless ``gmm_errors`` are within the ``GMM_*`` bounds."""
+    bounds = gmm_bounds("bfloat16" if "share_over_one_step" in err
+                        else "float32")
+    over = {k: (err[k], b) for k, b in bounds.items() if err[k] > b}
+    if over:
+        raise AssertionError(f"gmm kernel vs plain {where}: (value, bound) "
+                             f"{over}")
+
+
+GMM_ERROR_KEYS = ("rel_err", "max_abs_err", "share_over_one_step")
+
+
+def phase_check_gmm() -> dict:
+    """The ``gmm`` kernel against its plain version on the same numpy
+    inputs (``GMM_CASES``): two launches bitwise equal, finite, within the
+    ``GMM_*`` bounds. Returns the worst errors per dtype."""
+    import torch
+
+    from repro_torch.kernels.gmm import gmm, gmm_plain
+
+    worst = {}
+    for i, (dtype, shape) in enumerate(GMM_CASES):
+        x, w = gmm_inputs(shape, dtype, seed=900 + i)
+        out = gmm(x, w)
+        again = gmm(x, w)
+        plain = gmm_plain(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError("two gmm launches on the same inputs "
+                                 "differ")
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError("gmm kernel produced a non-finite value")
+        err = gmm_errors(out, plain)
+        emit({"phase": "check_gmm", "dtype": dtype,
+              "shape_ECDF": list(shape), "bitwise_repeat": True, **err,
+              "bounds": gmm_bounds(dtype)})
+        hold_gmm(err, f"({dtype}, {shape})")
+        worst[dtype] = worst_of([worst.get(dtype, {}), err],
+                                [k for k in GMM_ERROR_KEYS if k in err])
+        del x, w, out, again, plain
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_serve_moe() -> dict:
+    """The MoE serving path on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.gmm import gmm, gmm_plain
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import init_params, model_defs, moe
+
+    cfg = get_config(MOE_ARCH)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(MOE_SEED), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     tree_leaves(params)) / 1e9
+    torch.cuda.empty_cache()   # init's float32 draws
+
+    def prompts_of(batch, seq):
+        rng = np.random.default_rng(seq)
+        return torch.as_tensor(rng.integers(1, cfg.vocab_size, (batch, seq)),
+                               device="cuda")
+
+    # per prefill and per decode step: (gmm launches, flash launches)
+    per_call = {"prefill": [], "decode": []}
+
+    def counted(kind, make):
+        def make_counted(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a, **kw):
+                before = gmm.launches, flash_attention_fwd.launches
+                out = step(*a, **kw)
+                per_call[kind].append((gmm.launches - before[0],
+                                       flash_attention_fwd.launches
+                                       - before[1]))
+                return out
+            return run
+        return make_counted
+
+    # the first use of cuBLAS's bf16 products and the MoE path, outside
+    # the counted run
+    serve_mod.serve(cfg, prompts_of(1, 128), 2, params=params, device="cuda")
+    torch.cuda.synchronize()
+
+    served = []
+    make_prefill, make_decode = serve_mod.make_prefill_step, \
+        serve_mod.make_decode_step
+    serve_mod.make_prefill_step = counted("prefill", make_prefill)
+    serve_mod.make_decode_step = counted("decode", make_decode)
+    try:
+        gmm.launches = flash_attention_fwd.launches = 0
+        for batch, seq, gen in MOE_REQUESTS:
+            prompts = prompts_of(batch, seq)
+            for kind in per_call:
+                per_call[kind].clear()
+            torch.cuda.reset_peak_memory_stats()
+            res = serve_mod.serve(cfg, prompts, gen, params=params,
+                                  device="cuda")
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            C = moe.capacity(cfg, batch * seq)
+            want_gmm = 3 * L if C % ops.GMM_ALIGN == 0 else 0
+            if per_call["prefill"] != [(want_gmm, L)] or \
+                    per_call["decode"] != [(0, 0)] * (gen - 1):
+                raise AssertionError(
+                    f"serve_moe ({batch}x{seq}, C {C}): (gmm, flash) "
+                    f"launches per prefill {per_call['prefill']}, per "
+                    f"decode step {per_call['decode']}; want "
+                    f"{(want_gmm, L)} per prefill and none per decode step")
+            if tuple(res.tokens.shape) != (batch, gen) or not bool(
+                    torch.isfinite(res.prefill_logits.float()).all()):
+                raise AssertionError(f"serve_moe ({batch}x{seq}): tokens "
+                                     f"{tuple(res.tokens.shape)} or "
+                                     f"non-finite logits")
+            served.append((batch, seq, gen, C, prompts, res, peak_gb,
+                           per_call["prefill"][0]))
+        launches = {"gmm": gmm.launches, "flash": flash_attention_fwd.launches}
+        if launches["gmm"] != 3 * L:
+            raise AssertionError(f"serve_moe: {launches['gmm']} gmm launches "
+                                 f"over the requests, want {3 * L}")
+    finally:
+        serve_mod.make_prefill_step = make_prefill
+        serve_mod.make_decode_step = make_decode
+
+    # the aligned request once more: the kernel held against its plain
+    # version on each layer's own gate, up and down inputs, then the
+    # prefill through the plain version (ops dispatches a CUDA tensor to
+    # the kernel; these runs swap what it calls)
+    kernel = ops.gmm
+    layer_errs = []
+
+    def checked_route(x, w):
+        out = kernel(x, w)
+        layer_errs.append(gmm_errors(out, gmm_plain(x, w)))
+        return out
+
+    def routed(route, fn):
+        ops.gmm = route
+        try:
+            return fn()
+        finally:
+            ops.gmm = kernel
+
+    rows = []
+    for batch, seq, gen, C, prompts, res, peak_gb, prefill_launches in served:
+        row = {"phase": "serve_moe", "arch": cfg.name, "layers": L,
+               "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+               "top_k": cfg.moe.top_k, "batch": batch, "prompt": seq,
+               "generated": gen, "capacity": C,
+               "gmm_launches_per_prefill": prefill_launches[0],
+               "flash_launches_per_prefill": prefill_launches[1],
+               "gmm_launches_per_decode_step": 0,
+               "flash_launches_per_decode_step": 0,
+               "prefill_ms": res.prefill_seconds * 1e3,
+               "decode_ms_per_token": res.decode_seconds / (gen - 1) * 1e3,
+               "peak_memory_gb": peak_gb, "weights_gb": weights_gb,
+               "init_seconds": init_s,
+               "first_sequence": res.tokens[0].tolist()}
+        if prefill_launches[0]:
+            before = gmm.launches
+            layer_errs.clear()
+            routed(checked_route, lambda: serve_mod.make_prefill_step(
+                cfg, batch, seq + gen)(params, prompts))
+            if len(layer_errs) != 3 * L:
+                raise AssertionError(f"serve_moe: {len(layer_errs)} checked "
+                                     f"products, want {3 * L}")
+            for i, err in enumerate(layer_errs):
+                hold_gmm(err, f"serve_moe ({batch}x{seq}), layer {i // 3} "
+                         f"{('gate', 'up', 'down')[i % 3]}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_logits, _ = routed(gmm_plain, lambda: serve_mod
+                                     .make_prefill_step(cfg, batch, seq + gen)
+                                     (params, prompts))
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if gmm.launches != before + 3 * L:
+                raise AssertionError("serve_moe: the plain path launched "
+                                     "the gmm kernel")
+            gmm.launches = before  # checking launches are not counted
+            row.update({
+                "layers_held": worst_of(layer_errs, GMM_ERROR_KEYS),
+                "layer_bounds": gmm_bounds("bfloat16"),
+                "plain_prefill_ms": plain_s * 1e3,
+                "vs_plain_version": {
+                    "logits_rel_err": rel_err(res.prefill_logits,
+                                              plain_logits),
+                    "same_greedy_first_token": bool(torch.equal(
+                        res.prefill_logits.argmax(-1),
+                        plain_logits.argmax(-1)))}})
+        emit(row)
+        rows.append(row)
+    del params, served
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
+def phase_timing_gmm(smi: str) -> list:
+    """CUDA-event medians of ``gmm`` at deepseek-moe-16b's two bf16 serving
+    shapes, of its plain version, and of ``torch.bmm`` on the same tensors
+    (the yardstick only: the port never calls it on the aligned path),
+    beside the bound from ``work()``; and of the flash forward at the same
+    model's 4 x 4096 prefill."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.gmm import gmm, gmm_plain, work
+
+    rows = []
+    for dtype, shape in GMM_CASES[:2]:
+        x, w = gmm_inputs(shape, dtype, seed=950)
+        before = gmm.launches
+        kernel_ms = time_ms(lambda: gmm(x, w), 5, warmup=1)
+        gmm.launches = before  # timing launches are not counted
+        plain_ms = time_ms(lambda: gmm_plain(x, w), 5, warmup=1)
+        library_ms = time_ms(lambda: torch.bmm(x, w), 20)
+        wk = work(*shape, x.element_size())
+        flops_ms = wk["flops"] / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = wk["bytes"] / PEAK_BYTES * 1e3
+        row = {"phase": "timing", "kernel": "gmm", "dtype": dtype,
+               "shape_ECDF": list(shape), "ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_call": "torch.bmm",
+               "bound_ms": max(flops_ms, bytes_ms),
+               "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+               "bound_f32_cuda_cores_ms": wk["flops"] / PEAK_F32_FLOPS * 1e3,
+               "flops": wk["flops"], "bytes": wk["bytes"],
+               "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
+               "tflops": wk["flops"] / kernel_ms / 1e9, "card": smi}
+        emit(row)
+        rows.append(row)
+        del x, w
+    # the flash forward at deepseek-moe-16b's 4 x 4096 prefill (16 heads,
+    # no GQA), for the prefill's breakdown
+    shape = (4, 4096, 16, 16, 128)
+    q, k, v = flash_inputs(shape, "bfloat16", seed=960)
+    before = fa.flash_attention_fwd.launches
+    flash_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 5,
+                       warmup=1)
+    fa.flash_attention_fwd.launches = before
+    wk = fa.work(4, 16, 16, 4096, 128, True, 2)
+    emit({"phase": "timing", "kernel": "flash_attention_fwd",
+          "dtype": "bfloat16", "shape_BSHKvD": list(shape), "causal": True,
+          "ms": flash_ms, "bound_ms": max(wk["flops"] / PEAK_BF16_FLOPS,
+                                          wk["bytes"] / PEAK_BYTES) * 1e3,
+          "card": smi})
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_profile() -> None:
     """``--profile``: ``torch.profiler`` over the serving path of Yi-9B, for
     each request one prefill and then 3 decode steps (after an untimed
@@ -1756,10 +2100,14 @@ def main() -> int:
     bwd_err = phase_check_flash_bwd()
     served = phase_serve()
     trained = phase_train()
+    gmm_err = phase_check_gmm()
+    moe = phase_serve_moe()
     rows = phase_timing(configs, smi)
     ep_rows = phase_timing_episode(smi)
     flash_rows = phase_timing_flash(smi)
     train_rows = {r["kernel"]: r for r in phase_timing_flash_train(smi)}
+    gmm_rows = phase_timing_gmm(smi)
+    moe_held = next(r for r in moe["rows"] if "layers_held" in r)
 
     main_row = next(r for r in rows
                     if r["space"] == "2d" and r["sessions"] == SEED_SESSIONS)
@@ -1797,9 +2145,11 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
-        "launches": served["launches"] + trained["launches"][0],
+        "launches": served["launches"] + trained["launches"][0]
+        + moe["launches"]["flash"],
         "launches_by_path": {"serve": served["launches"],
-                             "train": trained["launches"][0]},
+                             "train": trained["launches"][0],
+                             "serve_moe": moe["launches"]["flash"]},
         "max_abs_err": flash_err["out_max_abs_err"],
         "out_rel_err": flash_err["out_rel_err"],
         "bf16_share_over_one_step": flash_err["out_share_over_one_step"],
@@ -1844,7 +2194,26 @@ def main() -> int:
                1, ("dq",)),
               ("flash_attention_dkv",
                "src/repro/kernels/flash_attention.py:160", 2,
-               ("dk", "dv"))))]})
+               ("dk", "dv")))), {
+        "name": "gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/gmm.py:35",
+        "launches": moe["launches"]["gmm"],
+        "max_abs_err": gmm_err["bfloat16"]["max_abs_err"],
+        "rel_err": gmm_err["bfloat16"]["rel_err"],
+        "bf16_share_over_one_step":
+            gmm_err["bfloat16"]["share_over_one_step"],
+        "f32_rel_err": gmm_err["float32"]["rel_err"],
+        "serve_layers_held": moe_held["layers_held"],
+        "ms": gmm_rows[0]["ms"], "plain_ms": gmm_rows[0]["plain_ms"],
+        "bound_ms": gmm_rows[0]["bound_ms"],
+        "bound_by": gmm_rows[0]["bound_by"],
+        "library_ms": gmm_rows[0]["library_ms"],
+        "library_call": gmm_rows[0]["library_call"],
+        "shape_ECDF": gmm_rows[0]["shape_ECDF"], "dtype": "bfloat16",
+        "at_down_shape": {key: gmm_rows[1][key] for key in (
+            "shape_ECDF", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}, "ok": True}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -20,6 +20,8 @@ _MODULES = {
     "yi-9b": "yi_9b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "arctic-480b": "arctic_480b",
 }
 
 #: architectures of the JAX package still to port -> the ROADMAP row
@@ -27,8 +29,6 @@ NOT_PORTED = {
     "qwen2-vl-72b": "A11 (vlm: M-RoPE, patch embeddings)",
     "zamba2-7b": "B5 (hybrid: Mamba2 SSD + shared attention)",
     "whisper-large-v3": "A11 (encoder-decoder)",
-    "arctic-480b": "B4 (MoE)",
-    "deepseek-moe-16b": "B4 (MoE)",
     "minicpm3-4b": "A11 (MLA attention)",
     "rwkv6-3b": "B6 (RWKV6)",
 }

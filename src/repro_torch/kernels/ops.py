@@ -1,7 +1,8 @@
 """Kernel dispatch: a CUDA tensor goes to the hand-written kernel, a CPU
 tensor to the kernel's plain PyTorch version. There are no modes and no
-environment variables; the tensor's device decides, and a CUDA tensor never
-falls back to the plain version."""
+environment variables; the tensor's device (and, for ``attention`` and
+``grouped_matmul``, the JAX package's shape condition) decides, and a CUDA
+tensor never falls back to the plain version."""
 
 from __future__ import annotations
 
@@ -13,10 +14,14 @@ from repro_torch.kernels.episode_learn import EpisodeKernelSpec, \
     EpisodeOperands, episode_learn, episode_learn_plain
 from repro_torch.kernels.flash_attention import flash_attention_bwd, \
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain
+from repro_torch.kernels.gmm import gmm, gmm_plain
 
 #: ``attention`` takes sequence lengths that are multiples of this, as the
 #: JAX package's ``kernels/ops.py::attention`` routes to its kernel
 ATTENTION_BLOCK = 128
+#: ``grouped_matmul`` takes the kernel when C, D and F are multiples of this,
+#: as the JAX package's ``kernels/ops.py::grouped_matmul`` takes ``gmm``
+GMM_ALIGN = 128
 
 
 def ddpg_inner_loop(state: DDPGState, batches: tuple, *,
@@ -91,3 +96,39 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no flash attention for device {q.device}")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     return _FlashAttention.apply(qt, kt, vt, causal).transpose(1, 2)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``out[e] = x[e] @ w[e]`` for x ``[E, C, D]``, w ``[E, D, F]``
+    (``kernels.gmm``), on the JAX package's condition: when C, D and F are
+    all multiples of 128, a CUDA tensor runs the kernel (``gmm``, looked up
+    by name in this module at each call) and a CPU tensor its plain version
+    (``gmm_plain``); otherwise ``torch.einsum`` on either device, in the
+    promoted type of x and w, as the reference's ``jnp.einsum``.
+
+    The kernel has no gradient yet: an aligned CUDA input that needs one
+    raises ``NotImplementedError`` (ROADMAP B4g). On the CPU, autograd
+    flows through the plain version and through einsum."""
+    C, D, F = x.shape[1], x.shape[2], w.shape[-1]
+    if C % GMM_ALIGN or D % GMM_ALIGN or F % GMM_ALIGN:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return torch.einsum("ecd,edf->ecf", x.to(dt), w.to(dt))
+    if x.device.type == "cuda":
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise NotImplementedError(
+                "gmm has no gradient kernel yet (dx = dy w^T, dw = x^T dy): "
+                "ROADMAP B4g")
+        return gmm(x.contiguous(), w.contiguous())
+    if x.device.type == "cpu":
+        return gmm_plain(x, w)
+    raise ValueError(f"no grouped matmul for device {x.device}")
+
+
+def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """``[E, C, D] -> [E, C, D]``, the MoE expert FFN:
+    ``silu(x w_gate) * (x w_up)``, then ``w_down``, each product a
+    ``grouped_matmul``."""
+    g = torch.nn.functional.silu(grouped_matmul(x, w_gate))
+    u = grouped_matmul(x, w_up)
+    return grouped_matmul(g * u, w_down)

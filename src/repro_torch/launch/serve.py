@@ -4,11 +4,19 @@ loop, one token per step.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
         --batch 4 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-moe-16b --batch 4 --prompt-len 4096 --gen 8
 
 On the card, a prefill whose prompt length is a multiple of 128 runs its
 attention through the flash-attention kernel (``kernels.ops.attention``,
 one launch per layer); decode steps attend over the cache in plain
-PyTorch. The weights are random (``init_params`` from ``--seed``).
+PyTorch. An MoE model (deepseek-moe-16b, arctic-480b) runs its experts
+through the ``gmm`` kernel (``kernels.ops.grouped_matmul``, three launches
+per layer) where the expert capacity C, d_model and the expert d_ff are
+multiples of 128: for deepseek-moe-16b a prefill of 16,384 tokens
+(C 1,920), such as 4 x 4096; other token counts, and every decode step,
+take ``torch.einsum``, as the JAX package does. The weights are random
+(``init_params`` from ``--seed``).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The LM model stack of the port (dense family): configs' dataclasses,
+"""The LM model stack of the port (dense and MoE families): configs' dataclasses,
 parameter definitions, the training forward and the serving entry
 points."""
 

@@ -1,5 +1,6 @@
-"""The decoder-only model stack for the dense family (GQA attention + SwiGLU
-or GELU MLP), with the serving entry points.
+"""The decoder-only model stack for the dense and MoE families (GQA
+attention + a SwiGLU or GELU MLP, or a mixture of experts), with the serving
+entry points.
 
 Layers are stacked along a leading ``layers`` axis, as in the JAX package
 (``repro/models/transformer.py``); where JAX scans over the stack, the port
@@ -19,8 +20,8 @@ Entry points:
 
 The cache is updated IN PLACE (the JAX version is pure: its
 ``dynamic_update_slice`` returns a new cache); both functions return the
-dict they were given. The other families (MoE, MLA, SSM, hybrid, enc-dec)
-raise naming their ROADMAP row.
+dict they were given. The other branches (MLA, SSM, hybrid, enc-dec) raise
+naming their ROADMAP row.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from repro_torch.models.attention import gqa_apply, gqa_defs, rope_angles
 from repro_torch.models.base import ArchConfig, ParamDef, apply_norm, \
     map_defs, norm_defs
 from repro_torch.models.ffn import ffn_apply, ffn_defs
+from repro_torch.models.moe import moe_apply, moe_defs
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -51,9 +53,6 @@ def _require_ported(cfg: ArchConfig) -> None:
                                   f"not ported yet: ROADMAP B5")
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {cfg.family}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet: ROADMAP B4")
     if cfg.attention == "mla":
         raise NotImplementedError(f"{cfg.name}: MLA attention is not ported "
                                   f"yet: ROADMAP A11")
@@ -70,11 +69,15 @@ def embed_defs(cfg: ArchConfig) -> dict:
 
 
 def _decoder_layer_defs(cfg: ArchConfig, L: int) -> dict:
-    """One stacked decoder layer (attention + mlp)."""
-    return {"attn_norm": norm_defs(cfg),
-            "attn": gqa_defs(cfg, stacked_layers=L),
-            "mlp_norm": norm_defs(cfg),
-            "mlp": ffn_defs(cfg, stacked_layers=L)}
+    """One stacked decoder layer (attention + mlp or moe)."""
+    d = {"attn_norm": norm_defs(cfg),
+         "attn": gqa_defs(cfg, stacked_layers=L),
+         "mlp_norm": norm_defs(cfg)}
+    if cfg.moe is not None:
+        d["moe"] = moe_defs(cfg, stacked_layers=L)
+    else:
+        d["mlp"] = ffn_defs(cfg, stacked_layers=L)
+    return d
 
 
 def model_defs(cfg: ArchConfig) -> dict:
@@ -137,15 +140,21 @@ def _unstack(tree: dict, n: int) -> list:
 
 
 def _attn_mlp_layer(cfg: ArchConfig, angles, impl, cache_index):
-    """Builds ``layer_fn(x, lp, lc) -> x`` for the dense family; ``lc`` (the
-    layer's cache views) is written in place."""
+    """Builds ``layer_fn(x, lp, lc) -> (x, aux)`` for the dense and MoE
+    families; ``lc`` (the layer's cache views) is written in place, and
+    ``aux`` is the MoE layer's load-balance loss (None for an MLP layer,
+    which adds nothing)."""
     def layer_fn(x, lp, lc):
         h = apply_norm(cfg, lp["attn_norm"], x)
         a, _ = gqa_apply(cfg, lp["attn"], h, angles=angles, cache=lc,
                          cache_index=cache_index, impl=impl)
         x = x + a.to(x.dtype)
         h = apply_norm(cfg, lp["mlp_norm"], x)
-        return x + ffn_apply(cfg, lp["mlp"], h).to(x.dtype)
+        if cfg.moe is not None:
+            f, aux = moe_apply(cfg, lp["moe"], h)
+        else:
+            f, aux = ffn_apply(cfg, lp["mlp"], h), None
+        return x + f.to(x.dtype), aux
     return layer_fn
 
 
@@ -155,7 +164,8 @@ REMAT = ("none", "full")
 
 def _stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
            caches=None, cache_index=None, impl="auto", remat="none"):
-    """Runs the layer stack, layer by layer. Returns (hidden, caches).
+    """Runs the layer stack, layer by layer. Returns (hidden, caches, aux),
+    aux the float32 sum of the layers' auxiliary losses in layer order.
 
     ``remat="full"`` wraps each layer in non-reentrant activation
     checkpointing (the counterpart of ``jax.checkpoint``): a layer keeps only
@@ -169,15 +179,18 @@ def _stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
                          f"or 'dots'")
     layer_fn = _attn_mlp_layer(cfg, angles, impl, cache_index)
     layers = _unstack(params["layers"], cfg.num_layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for index, lp in enumerate(layers):
         lc = None if caches is None else \
             {"k": caches["k"][index], "v": caches["v"][index]}
         if remat == "full" and lc is None:
-            x = checkpoint(layer_fn, x, lp, None, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(layer_fn, x, lp, None, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = layer_fn(x, lp, lc)
-    return x, caches
+            x, a = layer_fn(x, lp, lc)
+        if a is not None:
+            aux = aux + a
+    return x, caches, aux
 
 
 def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -197,8 +210,9 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             input_embeds: Optional[torch.Tensor] = None,
             attn_impl: str = "auto", remat: str = "none") -> tuple:
     """Full-sequence forward (training / evaluation): ``(logits [B, S, V],
-    aux)``, aux the float32 0-d auxiliary loss (0 for the dense family, as
-    in the JAX package). ``input_embeds`` ``[B, S, d_model]`` replaces the
+    aux)``, aux the float32 0-d auxiliary loss: the sum over the layers of
+    the MoE load-balance loss (0 for the dense family), as in the JAX
+    package. ``input_embeds`` ``[B, S, d_model]`` replaces the
     token embedding when given; ``positions`` ``[B, S]`` default to
     ``0..S-1``. (The JAX version's ``unroll`` tunes its layer scan; a
     Python layer loop has none.)"""
@@ -210,9 +224,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         x = params["embed"]["tok"][tokens].to(cfg.compute_dtype)
     if positions is None:
         positions = _default_positions(B, S, device=tokens.device)
-    x, _ = _stack(cfg, params, x, angles=_angles(cfg, positions),
-                  impl=attn_impl, remat=remat)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = _stack(cfg, params, x, angles=_angles(cfg, positions),
+                       impl=attn_impl, remat=remat)
     return _logits(cfg, params, x), aux
 
 
@@ -225,8 +238,8 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache, *,
     B, S = tokens.shape[:2]
     x = params["embed"]["tok"][tokens].to(cfg.compute_dtype)
     positions = _default_positions(B, S, device=tokens.device)
-    x, cache = _stack(cfg, params, x, angles=_angles(cfg, positions),
-                      caches=cache, impl=attn_impl)
+    x, cache, _ = _stack(cfg, params, x, angles=_angles(cfg, positions),
+                         caches=cache, impl=attn_impl)
     return _logits(cfg, params, x[:, -1:, :]), cache
 
 
@@ -241,6 +254,6 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache,
     x = params["embed"]["tok"][tokens].to(cfg.compute_dtype)
     positions = _default_positions(tokens.shape[0], 1, offset=cache_index,
                                    device=tokens.device)
-    x, cache = _stack(cfg, params, x, angles=_angles(cfg, positions),
-                      caches=cache, cache_index=cache_index, impl="ref")
+    x, cache, _ = _stack(cfg, params, x, angles=_angles(cfg, positions),
+                         caches=cache, cache_index=cache_index, impl="ref")
     return _logits(cfg, params, x), cache

@@ -66,6 +66,17 @@ def test_the_training_slice_is_covered():
     assert (PORT / "kernels" / "csrc" / "flash_attention_bwd.cu").exists()
 
 
+def test_the_moe_serving_slice_is_covered():
+    """The import checks below walk the MoE slice's modules and the ``gmm``
+    kernel too."""
+    mods = _port_modules()
+    for name in ("repro_torch.models.moe", "repro_torch.kernels.gmm",
+                 "repro_torch.configs.deepseek_moe_16b",
+                 "repro_torch.configs.arctic_480b"):
+        assert name in mods, name
+    assert (PORT / "kernels" / "csrc" / "gmm.cu").exists()
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
@@ -124,6 +135,8 @@ except RuntimeError as e:
 else:
     raise AssertionError("serve without a card and without device= ran")
 assert serve(cfg, [[1] * 128], 2, device="cpu").tokens.shape == (1, 2)
+assert serve(get_smoke_config("deepseek-moe-16b"), [[1] * 128], 2,
+             device="cpu").tokens.shape == (1, 2)
 from repro_torch.launch.train import main as train_main
 try:
     train_main(["--smoke", "--steps", "1"])

@@ -177,10 +177,10 @@ def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
     """Every kernel builds from ``csrc``; a library's name hashes its source
     and every header it includes, so an edited shared header
     (``ddpg_update.cuh``) gives both learner kernels new names, never a
-    stale build, and leaves the flash-attention kernels' alone."""
+    stale build, and leaves the flash-attention and gmm kernels' alone."""
     learners = ["ddpg_learn", "episode_learn"]
-    flash = ["flash_attention_bwd", "flash_attention_fwd"]
-    assert build.sources() == learners + flash
+    others = ["flash_attention_bwd", "flash_attention_fwd", "gmm"]
+    assert build.sources() == learners + others
     for name in build.sources():
         target = build._target(name)
         assert target.parent == build.BUILD_DIR
@@ -197,7 +197,7 @@ def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: build._target(n).name for n in build.sources()}
     assert all(before[n] != after[n] for n in learners)
-    assert all(before[n] == after[n] for n in flash)
+    assert all(before[n] == after[n] for n in others)
 
 
 @pytest.mark.cuda

@@ -21,7 +21,9 @@ and cursors EXACT, floats within 2e-6 relative (measured 4.5e-7);
 way) and lse within 2e-6; ``flash_attention_bwd`` (dq and dk/dv) float32
 within 2e-6 relative (measured 4.2e-7), bfloat16 within one bf16 ulp of
 the largest value (2^-7 relative; measured 3.0e-4: a few elements round
-the other way).
+the other way); ``gmm`` float32 within 2e-6 relative, bfloat16 within one
+bf16 ulp of the largest value (measured 0 and 0: at D = 160 the one FMA
+chain per output sums in the CPU library's order).
 """
 
 import ctypes
@@ -46,6 +48,8 @@ from repro_torch.kernels import episode_learn as el
 from repro_torch.kernels.ddpg_learn import _hyper, ddpg_learn_plain
 from repro_torch.kernels.flash_attention import bind_bwd, bwd_smem_plan, \
     flash_attention_bwd_plain, flash_attention_fwd_plain, scale_of
+from repro_torch.kernels.gmm import _bind as gmm_bind
+from repro_torch.kernels.gmm import gmm_plain
 
 STUB = r"""
 #pragma once
@@ -99,6 +103,9 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   std::memcpy(&u, &f, 4);
   u += 0x7fffu + ((u >> 16) & 1u);
   return {std::uint16_t(u >> 16)};
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  return __float2bfloat16(f);
 }
 """
 DEFS = r"""
@@ -318,7 +325,29 @@ def test_flash_attention_bwd_source_matches_plain(emulated, causal, dtype):
         assert sizes(d, 1) == plan["dkv"]["total"]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_source_matches_plain(emulated, dtype):
+    """Three experts, two row tiles and three column tiles of 64, D = 160
+    (five chunks of 32, the last block of the plain version partial); the
+    launcher refuses a D that is not a multiple of 32."""
+    E, C, D, F = 3, 128, 160, 192
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.standard_normal((E, C, D)), dtype=dtype)
+    w = torch.tensor(rng.standard_normal((E, D, F)), dtype=dtype)
+    want = gmm_plain(x, w)
+    got = torch.empty_like(want)
+    lib = gmm_bind(emulated["gmm"])
+    bf16 = int(dtype == torch.bfloat16)
+    assert lib.gmm_launch(x.data_ptr(), w.data_ptr(), got.data_ptr(), E, C,
+                          D, F, bf16, None) == 0
+    assert lib.gmm_launch(x.data_ptr(), w.data_ptr(), got.data_ptr(), E, C,
+                          100, F, bf16, None) == -1
+    tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert _rel(got, want) <= tol
+
+
 def test_the_emulation_covers_every_source():
     assert build.sources() == ["ddpg_learn", "episode_learn",
-                               "flash_attention_bwd", "flash_attention_fwd"]
+                               "flash_attention_bwd", "flash_attention_fwd",
+                               "gmm"]
     assert pathlib.Path(build.CSRC / "ddpg_update.cuh").exists()
