@@ -49,9 +49,10 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
   7. check_flash  the ``flash_attention_fwd`` kernel against its plain
                   version on the same numpy inputs: bfloat16 at the two
                   serving shapes (B 4, S 512 and B 1, S 4096; 32 query over 4
-                  key/value heads, D 128), causal; float32 at B 2, S 256, 8
-                  over 2 heads, D 64, causal and not. ``out`` and ``lse`` held
-                  within ``FLASH_*`` below;
+                  key/value heads, D 128) and at zamba2-7b's shared
+                  attention (B 4, S 4096, 32 heads, D 112), causal; float32
+                  at B 2, S 256, 8 over 2 heads, D 64, causal and not.
+                  ``out`` and ``lse`` held within ``FLASH_*`` below;
   8. serve        the LM serving path, ``repro_torch.launch.serve.serve`` on
                   Yi-9B at its published depth and width in bfloat16, random
                   weights from a seeded ``torch.Generator`` on the card: 4
@@ -111,22 +112,44 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   gate, up and down inputs (the ``GMM_*`` bf16 bounds), and
                   through the plain version: the last-token logits' gap is
                   reported, not held (random weights amplify rounding);
- 13. timing       CUDA-event medians of every kernel and its plain version:
+ 13. check_ssd    the ``ssd_scan`` kernel against its plain version on the
+                  same numpy inputs: float32 at B 2, H 3, S 400, P 32, N 16,
+                  chunk 200 and at B 1, H 2, S 512, P = N = 64, chunk 256;
+                  bfloat16 at zamba2-7b's serving shapes (B 4, H 112, P = N
+                  = 64: S 4096 at chunk 256, and S 200 at chunk 200); y and
+                  the float32 state held within ``SSD_*`` below, two
+                  launches bitwise equal;
+ 14. serve_hybrid the hybrid serving path, ``repro_torch.launch.serve.serve``
+                  on zamba2-7b at its published size in bfloat16 (random
+                  weights from a seeded ``torch.Generator`` on the card): 4
+                  prompts x 4096 tokens -> 8 greedy tokens, whose prefill
+                  must launch ``ssd_scan`` exactly 81 times (once per Mamba2
+                  block, chunk 256) and the flash forward 9 times (the shared
+                  attention), then 4 x 200 -> 8 (chunk 200: 81 ``ssd_scan``
+                  launches, no flash launch, 200 not being a multiple of
+                  128); no decode step launches either kernel. Then the 4 x
+                  4096 prefill once more with the kernel held against its
+                  plain version on each of the 81 layers' own inputs (the
+                  ``SSD_*`` bf16 bounds), and through the plain version: the
+                  last-token logits' gap is reported, not held (random
+                  weights amplify rounding);
+ 15. timing       CUDA-event medians of every kernel and its plain version:
                   the learners at N = 1 and N = 1024 (the episode's plain
                   version at N = 1 only, its pre-draw timed apart), the flash
                   forward at the two serving shapes beside PyTorch's
                   ``scaled_dot_product_attention`` on the same tensors, the
                   flash forward, dq and dk/dv at the training shape beside
-                  SDPA's forward and backward, and ``gmm`` at the two MoE
-                  serving shapes beside ``torch.bmm``; each beside the bound
-                  from the shapes.
+                  SDPA's forward and backward, ``gmm`` at the two MoE
+                  serving shapes beside ``torch.bmm``, and ``ssd_scan`` at
+                  zamba2-7b's serving shape (no PyTorch call computes the
+                  scan); each beside the bound from the shapes.
 
 Then the ``{"kernels": [...]}`` line, ``nvidia-smi``'s line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
-Phases 1-10 and the matching timings are the earlier slices' and run as
+Phases 1-12 and the matching timings are the earlier slices' and run as
 they did.
 
     python3 chip_smoke.py --profile
@@ -224,6 +247,7 @@ FLASH_BF16_OFF_SHARE = 1e-3
 #: small float32 GQA shape both ways
 FLASH_CASES = (("bfloat16", (4, 512, 32, 4, 128), True),
                ("bfloat16", (1, 4096, 32, 4, 128), True),
+               ("bfloat16", (4, 4096, 32, 32, 112), True),
                ("float32", (2, 256, 8, 2, 64), True),
                ("float32", (2, 256, 8, 2, 64), False))
 #: the serving requests: (batch, prompt tokens, generated tokens)
@@ -278,6 +302,31 @@ GMM_CASES = (("bfloat16", (64, 1920, 2048, 1408)),
 MOE_REQUESTS = ((4, 4096, 8), (4, 512, 8))
 MOE_ARCH = "deepseek-moe-16b"
 MOE_SEED = 0
+#: ssd_scan kernel vs its plain version on the same inputs, as
+#: max|kernel - plain| / max|plain|: y in float32 within SSD_F32_RTOL; y in
+#: bfloat16 within SSD_BF16_RTOL (one bf16 step of the largest value) with
+#: at most SSD_BF16_OFF_SHARE of the elements further apart than one bf16
+#: step of the plain value (the two sum the same float32 products in
+#: another order, and y rounds once to bf16); the float32 state within
+#: SSD_STATE_RTOL either way
+SSD_F32_RTOL = 1e-5
+SSD_BF16_RTOL = 2.0 ** -7
+SSD_BF16_OFF_SHARE = 1e-3
+SSD_STATE_RTOL = 1e-5
+#: (dtype, (B, H, S, P, N, chunk)): small float32 shapes (an odd chunk; N =
+#: P = 64), then zamba2-7b's prefill of 4 x 4096 tokens and of 4 x 200
+#: (chunk 200) in bf16
+SSD_CASES = (("float32", (2, 3, 400, 32, 16, 200)),
+             ("float32", (1, 2, 512, 64, 64, 256)),
+             ("bfloat16", (4, 112, 4096, 64, 64, 256)),
+             ("bfloat16", (4, 112, 200, 64, 64, 200)))
+#: the hybrid serving requests: (batch, prompt tokens, generated tokens).
+#: At 4 x 4096 the scans run at chunk 256 and the shared attention takes
+#: the flash path; at 4 x 200 the scans run at chunk 200 and the attention
+#: takes the plain reference path (200 is not a multiple of 128)
+HYBRID_REQUESTS = ((4, 4096, 8), (4, 200, 8))
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_SEED = 0
 
 
 def emit(obj) -> None:
@@ -1688,6 +1737,325 @@ def phase_timing_gmm(smi: str) -> list:
     return rows
 
 
+def ssd_inputs(shape, dtype, seed: int):
+    """x [B H, S, P], dt [B H, S], A [B H], Bm/Cm [B, S, N] from numpy,
+    with the reference test's ranges (x N(0, 0.5), dt U(0.1, 0.9), A
+    -U(0.5, 2), B and C N(0, 0.3)), on the card; x, Bm, Cm in ``dtype``."""
+    import numpy as np
+    import torch
+
+    B, H, S, P, N, _ = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B * H, S, P), np.float32) * np.float32(0.5)
+    dt = rng.uniform(0.1, 0.9, (B * H, S)).astype(np.float32)
+    A = -rng.uniform(0.5, 2.0, B * H).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N), np.float32) * np.float32(0.3)
+    Cm = rng.standard_normal((B, S, N), np.float32) * np.float32(0.3)
+    to = getattr(torch, dtype)
+    return (torch.as_tensor(x).to("cuda", to), torch.as_tensor(dt).cuda(),
+            torch.as_tensor(A).cuda(), torch.as_tensor(Bm).to("cuda", to),
+            torch.as_tensor(Cm).to("cuda", to))
+
+
+def ssd_errors(y, state, py, pstate) -> dict:
+    """The kernel's (y, state) against the plain version's: max|a - b| /
+    max|b| and max|a - b| of each; for bfloat16 y also the shares of the
+    elements that differ at all and by more than one bf16 step."""
+    import torch
+
+    err = {"y_rel_err": rel_err(y, py),
+           "y_max_abs_err": float((y.float() - py.float()).abs().max()),
+           "state_rel_err": rel_err(state, pstate),
+           "state_max_abs_err": float((state - pstate).abs().max())}
+    if y.dtype == torch.bfloat16:
+        steps = bf16_steps(y, py)
+        err["y_share_differing"] = float((steps > 0).float().mean())
+        err["y_share_over_one_step"] = float((steps > 1).float().mean())
+    return err
+
+
+def ssd_bounds(dtype: str) -> dict:
+    if dtype == "bfloat16":
+        return {"y_rel_err": SSD_BF16_RTOL,
+                "y_share_over_one_step": SSD_BF16_OFF_SHARE,
+                "state_rel_err": SSD_STATE_RTOL}
+    return {"y_rel_err": SSD_F32_RTOL, "state_rel_err": SSD_STATE_RTOL}
+
+
+def hold_ssd(err: dict, where: str) -> None:
+    """Raise unless ``ssd_errors`` are within the ``SSD_*`` bounds."""
+    bounds = ssd_bounds("bfloat16" if "y_share_over_one_step" in err
+                        else "float32")
+    over = {k: (err[k], b) for k, b in bounds.items() if not err[k] <= b}
+    if over:
+        raise AssertionError(f"ssd_scan kernel vs plain {where}: (value, "
+                             f"bound) {over}")
+
+
+SSD_ERROR_KEYS = ("y_rel_err", "y_max_abs_err", "state_rel_err",
+                  "state_max_abs_err", "y_share_over_one_step")
+
+
+def phase_check_ssd() -> dict:
+    """The ``ssd_scan`` kernel against its plain version on the same numpy
+    inputs (``SSD_CASES``): two launches bitwise equal, finite, within the
+    ``SSD_*`` bounds. Returns the worst errors per dtype."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import smem_plan, ssd_scan, \
+        ssd_scan_plain
+
+    worst = {}
+    for i, (dtype, shape) in enumerate(SSD_CASES):
+        B, H, S, P, N, chunk = shape
+        args = ssd_inputs(shape, dtype, seed=1100 + i)
+        y, state = ssd_scan(*args, heads=H, chunk=chunk)
+        y2, state2 = ssd_scan(*args, heads=H, chunk=chunk)
+        py, pstate = ssd_scan_plain(*args, heads=H, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(state, state2)):
+            raise AssertionError("two ssd_scan launches on the same inputs "
+                                 "differ")
+        if not (bool(torch.isfinite(y.float()).all())
+                and bool(torch.isfinite(state).all())):
+            raise AssertionError("ssd_scan kernel produced a non-finite "
+                                 "value")
+        err = ssd_errors(y, state, py, pstate)
+        emit({"phase": "check_ssd", "dtype": dtype,
+              "shape_BHSPN_chunk": list(shape), "bitwise_repeat": True,
+              "smem_bytes": smem_plan(chunk, N, P)["total"], **err,
+              "bounds": ssd_bounds(dtype)})
+        hold_ssd(err, f"({dtype}, {shape})")
+        worst[dtype] = worst_of([worst.get(dtype, {}), err],
+                                [k for k in SSD_ERROR_KEYS if k in err])
+        del args, y, y2, state, state2, py, pstate
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_serve_hybrid() -> dict:
+    """The hybrid serving path on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import init_params, model_defs
+
+    cfg = get_config(HYBRID_ARCH)
+    L = cfg.num_layers
+    n_attn = L // cfg.hybrid_attn_every
+    t0 = time.perf_counter()
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(HYBRID_SEED), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     tree_leaves(params)) / 1e9
+    torch.cuda.empty_cache()   # init's float32 draws
+
+    def prompts_of(batch, seq):
+        rng = np.random.default_rng(seq)
+        return torch.as_tensor(rng.integers(1, cfg.vocab_size, (batch, seq)),
+                               device="cuda")
+
+    # per prefill and per decode step: (ssd_scan launches, flash launches)
+    per_call = {"prefill": [], "decode": []}
+
+    def counted(kind, make):
+        def make_counted(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a, **kw):
+                before = ssd_scan.launches, flash_attention_fwd.launches
+                out = step(*a, **kw)
+                per_call[kind].append((ssd_scan.launches - before[0],
+                                       flash_attention_fwd.launches
+                                       - before[1]))
+                return out
+            return run
+        return make_counted
+
+    # the first use of cuBLAS's bf16 products and of the kernel, outside
+    # the counted run
+    serve_mod.serve(cfg, prompts_of(1, 256), 2, params=params, device="cuda")
+    torch.cuda.synchronize()
+
+    served = []
+    make_prefill, make_decode = serve_mod.make_prefill_step, \
+        serve_mod.make_decode_step
+    serve_mod.make_prefill_step = counted("prefill", make_prefill)
+    serve_mod.make_decode_step = counted("decode", make_decode)
+    try:
+        ssd_scan.launches = flash_attention_fwd.launches = 0
+        for batch, seq, gen in HYBRID_REQUESTS:
+            prompts = prompts_of(batch, seq)
+            for kind in per_call:
+                per_call[kind].clear()
+            torch.cuda.reset_peak_memory_stats()
+            res = serve_mod.serve(cfg, prompts, gen, params=params,
+                                  device="cuda")
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            want_flash = n_attn if seq % ops.ATTENTION_BLOCK == 0 else 0
+            if per_call["prefill"] != [(L, want_flash)] or \
+                    per_call["decode"] != [(0, 0)] * (gen - 1):
+                raise AssertionError(
+                    f"serve_hybrid ({batch}x{seq}): (ssd_scan, flash) "
+                    f"launches per prefill {per_call['prefill']}, per "
+                    f"decode step {per_call['decode']}; want "
+                    f"{(L, want_flash)} per prefill and none per decode "
+                    f"step")
+            if tuple(res.tokens.shape) != (batch, gen) or not bool(
+                    torch.isfinite(res.prefill_logits.float()).all()):
+                raise AssertionError(f"serve_hybrid ({batch}x{seq}): tokens "
+                                     f"{tuple(res.tokens.shape)} or "
+                                     f"non-finite logits")
+            if res.cache["state"].dtype != torch.float32 or not bool(
+                    torch.isfinite(res.cache["state"]).all()):
+                raise AssertionError(f"serve_hybrid ({batch}x{seq}): the "
+                                     f"SSM state is not finite float32")
+            served.append((batch, seq, gen, prompts, res, peak_gb,
+                           per_call["prefill"][0]))
+        launches = {"ssd_scan": ssd_scan.launches,
+                    "flash": flash_attention_fwd.launches}
+        if launches["ssd_scan"] != L * len(HYBRID_REQUESTS):
+            raise AssertionError(f"serve_hybrid: {launches['ssd_scan']} "
+                                 f"ssd_scan launches over the requests, "
+                                 f"want {L * len(HYBRID_REQUESTS)}")
+    finally:
+        serve_mod.make_prefill_step = make_prefill
+        serve_mod.make_decode_step = make_decode
+
+    # the 4 x 4096 request once more: the kernel held against its plain
+    # version on each layer's own inputs, then the prefill through the
+    # plain version (ops dispatches a CUDA tensor to the kernel; these runs
+    # swap what it calls)
+    kernel = ops.ssd_scan
+    layer_errs = []
+
+    def checked_route(*args, heads, chunk):
+        y, state = kernel(*args, heads=heads, chunk=chunk)
+        py, pstate = ssd_scan_plain(*args, heads=heads, chunk=chunk)
+        layer_errs.append(ssd_errors(y, state, py, pstate))
+        return y, state
+
+    def routed(route, fn):
+        ops.ssd_scan = route
+        try:
+            return fn()
+        finally:
+            ops.ssd_scan = kernel
+
+    rows = []
+    for batch, seq, gen, prompts, res, peak_gb, prefill_launches in served:
+        row = {"phase": "serve_hybrid", "arch": cfg.name, "layers": L,
+               "d_model": cfg.d_model, "ssm_heads": 2 * cfg.d_model
+               // cfg.ssm.head_dim, "attention_applications": n_attn,
+               "batch": batch, "prompt": seq, "generated": gen,
+               "chunk": min(cfg.ssm.chunk, seq),
+               "ssd_scan_launches_per_prefill": prefill_launches[0],
+               "flash_launches_per_prefill": prefill_launches[1],
+               "ssd_scan_launches_per_decode_step": 0,
+               "flash_launches_per_decode_step": 0,
+               "prefill_ms": res.prefill_seconds * 1e3,
+               "decode_ms_per_token": res.decode_seconds / (gen - 1) * 1e3,
+               "peak_memory_gb": peak_gb, "weights_gb": weights_gb,
+               "init_seconds": init_s,
+               "first_sequence": res.tokens[0].tolist()}
+        if seq == HYBRID_REQUESTS[0][1]:
+            before = ssd_scan.launches
+            layer_errs.clear()
+            routed(checked_route, lambda: serve_mod.make_prefill_step(
+                cfg, batch, seq + gen)(params, prompts))
+            if len(layer_errs) != L:
+                raise AssertionError(f"serve_hybrid: {len(layer_errs)} "
+                                     f"checked scans, want {L}")
+            for i, err in enumerate(layer_errs):
+                hold_ssd(err, f"serve_hybrid ({batch}x{seq}), layer {i}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_logits, _ = routed(ssd_scan_plain, lambda: serve_mod
+                                     .make_prefill_step(cfg, batch, seq + gen)
+                                     (params, prompts))
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if ssd_scan.launches != before + L:
+                raise AssertionError("serve_hybrid: the plain path launched "
+                                     "the ssd_scan kernel")
+            ssd_scan.launches = before  # checking launches are not counted
+            row.update({
+                "layers_held": worst_of(layer_errs, SSD_ERROR_KEYS),
+                "layer_bounds": ssd_bounds("bfloat16"),
+                "plain_prefill_ms": plain_s * 1e3,
+                "vs_plain_version": {
+                    "logits_rel_err": rel_err(res.prefill_logits,
+                                              plain_logits),
+                    "same_greedy_first_token": bool(torch.equal(
+                        res.prefill_logits.argmax(-1),
+                        plain_logits.argmax(-1)))}})
+        emit(row)
+        rows.append(row)
+    del params, served
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
+def phase_timing_ssd(smi: str) -> list:
+    """CUDA-event medians of ``ssd_scan`` and of its plain version at
+    zamba2-7b's bf16 serving shape (4 x 4096 tokens: BH 448, chunk 256),
+    beside the bound from ``work()`` (no single PyTorch call computes the
+    SSD scan, so there is no library time); and of the flash forward at
+    the same model's 4 x 4096 prefill (32 heads of 112)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain, work
+
+    dtype, shape = SSD_CASES[2]
+    B, H, S, P, N, chunk = shape
+    args = ssd_inputs(shape, dtype, seed=1150)
+    before = ssd_scan.launches
+    kernel_ms = time_ms(lambda: ssd_scan(*args, heads=H, chunk=chunk), 5,
+                        warmup=1)
+    ssd_scan.launches = before  # timing launches are not counted
+    plain_ms = time_ms(lambda: ssd_scan_plain(*args, heads=H, chunk=chunk),
+                       3, warmup=1)
+    wk = work(B * H, S, P, N, chunk, args[0].dtype, heads=H)
+    flops_ms = wk["flops"] / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = wk["bytes"] / PEAK_BYTES * 1e3
+    row = {"phase": "timing", "kernel": "ssd_scan", "dtype": dtype,
+           "shape_BHSPN_chunk": list(shape), "ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           "library_call": "none: no single PyTorch call computes the SSD "
+                           "scan",
+           "bound_ms": max(flops_ms, bytes_ms),
+           "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+           "bound_f32_cuda_cores_ms": wk["flops"] / PEAK_F32_FLOPS * 1e3,
+           "flops": wk["flops"], "bytes": wk["bytes"],
+           "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
+           "tflops": wk["flops"] / kernel_ms / 1e9, "card": smi}
+    emit(row)
+    del args
+    shape = (4, 4096, 32, 32, 112)
+    q, k, v = flash_inputs(shape, "bfloat16", seed=1160)
+    before = fa.flash_attention_fwd.launches
+    flash_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 3,
+                       warmup=1)
+    fa.flash_attention_fwd.launches = before
+    wf = fa.work(4, 32, 32, 4096, 112, True, 2)
+    emit({"phase": "timing", "kernel": "flash_attention_fwd",
+          "dtype": "bfloat16", "shape_BSHKvD": list(shape), "causal": True,
+          "ms": flash_ms, "bound_ms": max(wf["flops"] / PEAK_BF16_FLOPS,
+                                          wf["bytes"] / PEAK_BYTES) * 1e3,
+          "card": smi})
+    del q, k, v
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def phase_profile() -> None:
     """``--profile``: ``torch.profiler`` over the serving path of Yi-9B, for
     each request one prefill and then 3 decode steps (after an untimed
@@ -2102,12 +2470,16 @@ def main() -> int:
     trained = phase_train()
     gmm_err = phase_check_gmm()
     moe = phase_serve_moe()
+    ssd_err = phase_check_ssd()
+    hybrid = phase_serve_hybrid()
     rows = phase_timing(configs, smi)
     ep_rows = phase_timing_episode(smi)
     flash_rows = phase_timing_flash(smi)
     train_rows = {r["kernel"]: r for r in phase_timing_flash_train(smi)}
     gmm_rows = phase_timing_gmm(smi)
+    ssd_row = phase_timing_ssd(smi)[0]
     moe_held = next(r for r in moe["rows"] if "layers_held" in r)
+    hybrid_held = next(r for r in hybrid["rows"] if "layers_held" in r)
 
     main_row = next(r for r in rows
                     if r["space"] == "2d" and r["sessions"] == SEED_SESSIONS)
@@ -2146,10 +2518,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "launches": served["launches"] + trained["launches"][0]
-        + moe["launches"]["flash"],
+        + moe["launches"]["flash"] + hybrid["launches"]["flash"],
         "launches_by_path": {"serve": served["launches"],
                              "train": trained["launches"][0],
-                             "serve_moe": moe["launches"]["flash"]},
+                             "serve_moe": moe["launches"]["flash"],
+                             "serve_hybrid": hybrid["launches"]["flash"]},
         "max_abs_err": flash_err["out_max_abs_err"],
         "out_rel_err": flash_err["out_rel_err"],
         "bf16_share_over_one_step": flash_err["out_share_over_one_step"],
@@ -2213,7 +2586,26 @@ def main() -> int:
         "shape_ECDF": gmm_rows[0]["shape_ECDF"], "dtype": "bfloat16",
         "at_down_shape": {key: gmm_rows[1][key] for key in (
             "shape_ECDF", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}, "ok": True}]})
+            "library_ms")}, "ok": True}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/mamba2_scan.py:69",
+        "launches": hybrid["launches"]["ssd_scan"],
+        "launches_by_path": {"serve_hybrid": hybrid["launches"]["ssd_scan"]},
+        "max_abs_err": ssd_err["bfloat16"]["y_max_abs_err"],
+        "y_rel_err": ssd_err["bfloat16"]["y_rel_err"],
+        "bf16_share_over_one_step":
+            ssd_err["bfloat16"]["y_share_over_one_step"],
+        "state_rel_err": max(ssd_err[d]["state_rel_err"]
+                             for d in ("bfloat16", "float32")),
+        "f32_y_rel_err": ssd_err["float32"]["y_rel_err"],
+        "serve_layers_held": hybrid_held["layers_held"],
+        "ms": ssd_row["ms"], "plain_ms": ssd_row["plain_ms"],
+        "bound_ms": ssd_row["bound_ms"], "bound_by": ssd_row["bound_by"],
+        "bound_f32_cuda_cores_ms": ssd_row["bound_f32_cuda_cores_ms"],
+        "library_ms": None, "library_call": ssd_row["library_call"],
+        "shape_BHSPN_chunk": ssd_row["shape_BHSPN_chunk"],
+        "dtype": "bfloat16", "ok": True}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -4,9 +4,10 @@ architectures the port runs.
 ``get_config`` / ``get_smoke_config`` return the port's ``ArchConfig`` of a
 registered name: the published configuration, or a few-layer, narrow one
 for tests. Each is a copy of the JAX package's ``repro/configs/<name>.py``.
-The other architectures of the JAX package need model families the port
-does not have yet; asking for one raises ``NotImplementedError`` naming the
-ROADMAP row that ports it.
+The registered names cover the dense, MoE and hybrid (Mamba2 + shared
+attention) families. The other architectures of the JAX package need model
+families the port does not have yet; asking for one raises
+``NotImplementedError`` naming the ROADMAP row that ports it.
 """
 
 from __future__ import annotations
@@ -22,12 +23,12 @@ _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "arctic-480b": "arctic_480b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 #: architectures of the JAX package still to port -> the ROADMAP row
 NOT_PORTED = {
     "qwen2-vl-72b": "A11 (vlm: M-RoPE, patch embeddings)",
-    "zamba2-7b": "B5 (hybrid: Mamba2 SSD + shared attention)",
     "whisper-large-v3": "A11 (encoder-decoder)",
     "minicpm3-4b": "A11 (MLA attention)",
     "rwkv6-3b": "B6 (RWKV6)",

@@ -149,15 +149,21 @@ def _tree_from_numpy(tree, device):
 
 def lm_params_from_jax(tree, device=None) -> dict:
     """The JAX package's LM parameter tree (nested dicts of arrays; numpy
-    or jax leaves) as the port's nested dict of tensors on ``device``. The
-    layouts are the same (stacked ``[L, ...]`` layers, ``[in, ...out]``
-    projections), so this is a tree walk; dtypes map one to one."""
+    or jax leaves) as the port's nested dict of tensors on ``device``: any
+    family's tree, the hybrid's ``layers.{norm, mamba}`` and
+    ``shared_attn.{norm, attn}`` too. The layouts are the same (stacked
+    ``[L, ...]`` layers, ``[in, ...out]`` projections), so this is a tree
+    walk; dtypes map one to one."""
     return _tree_from_numpy(tree, resolve_device(device))
 
 
 def lm_cache_from_jax(tree, device=None) -> dict:
-    """The JAX package's serving cache (``{"k", "v"}`` of
-    ``[L, B, S_max, Kv, Dh]``) as the port's, on ``device``."""
+    """The JAX package's serving cache as the port's, on ``device``, dtypes
+    kept: ``{"k", "v"}`` of ``[L, B, S_max, Kv, Dh]``, or the hybrid's
+    ``{"state" [L, B, H, N, P], "conv_x", "conv_bc", "attn_k", "attn_v"}``.
+    (After a bf16 prefill off the TPU the JAX package's hybrid ``state`` is
+    bf16, where its ``make_cache`` declares float32; the port's is always
+    float32, so convert such a cache's state with ``.float()``.)"""
     return _tree_from_numpy(tree, resolve_device(device))
 
 

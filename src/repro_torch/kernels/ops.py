@@ -15,6 +15,7 @@ from repro_torch.kernels.episode_learn import EpisodeKernelSpec, \
 from repro_torch.kernels.flash_attention import flash_attention_bwd, \
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain
 from repro_torch.kernels.gmm import gmm, gmm_plain
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 #: ``attention`` takes sequence lengths that are multiples of this, as the
 #: JAX package's ``kernels/ops.py::attention`` routes to its kernel
@@ -132,3 +133,42 @@ def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
     g = torch.nn.functional.silu(grouped_matmul(x, w_gate))
     u = grouped_matmul(x, w_up)
     return grouped_matmul(g * u, w_down)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, chunk: int) -> tuple:
+    """The chunked Mamba2 / SSD scan in the model layout
+    (``kernels.ssd_scan``): x ``[b, s, h, p]``, dt ``[b, s, h]`` float32
+    (after softplus), A ``[h]`` float32, Bm/Cm ``[b, s, n]`` in x's type ->
+    ``(y [b, s, h, p]`` in x's type``, state [b, h, n, p]`` float32``)``.
+    Folds x and dt to ``[b h, s, ...]`` and A to ``[b h]``, and unfolds the
+    results. A CUDA tensor runs the kernel (``ssd_scan``, looked up by name
+    in this module at each call), a CPU tensor its plain version
+    (``ssd_scan_plain``). ``s`` must be a multiple of ``chunk``, where the
+    JAX package's fallback asserts; the port raises ``ValueError``.
+
+    The kernel has no gradient: a CUDA input that needs one raises
+    ``NotImplementedError`` (ROADMAP A11f). On the CPU, autograd flows
+    through the plain version."""
+    b, s, h, p = x.shape
+    if s % chunk:
+        raise ValueError(f"the SSD scan takes a sequence length that is a "
+                         f"multiple of the chunk, got {s} and {chunk}")
+    xf = x.transpose(1, 2).reshape(b * h, s, p)
+    dtf = dt.transpose(1, 2).reshape(b * h, s)
+    Af = A[None, :].expand(b, h).reshape(b * h)
+    if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, Bm, Cm)):
+            raise NotImplementedError(
+                "ssd_scan has no gradient kernel yet: ROADMAP A11f (hybrid "
+                "training)")
+        y, state = ssd_scan(xf.contiguous(), dtf.contiguous(),
+                            Af.contiguous(), Bm.contiguous(), Cm.contiguous(),
+                            heads=h, chunk=chunk)
+    elif x.device.type == "cpu":
+        y, state = ssd_scan_plain(xf, dtf, Af, Bm, Cm, heads=h, chunk=chunk)
+    else:
+        raise ValueError(f"no SSD scan for device {x.device}")
+    n = Bm.shape[-1]
+    return y.reshape(b, h, s, p).transpose(1, 2), state.reshape(b, h, n, p)

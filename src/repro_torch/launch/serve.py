@@ -6,6 +6,8 @@ loop, one token per step.
         --batch 4 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-moe-16b --batch 4 --prompt-len 4096 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch zamba2-7b --batch 4 --prompt-len 4096 --gen 8
 
 On the card, a prefill whose prompt length is a multiple of 128 runs its
 attention through the flash-attention kernel (``kernels.ops.attention``,
@@ -15,8 +17,14 @@ through the ``gmm`` kernel (``kernels.ops.grouped_matmul``, three launches
 per layer) where the expert capacity C, d_model and the expert d_ff are
 multiples of 128: for deepseek-moe-16b a prefill of 16,384 tokens
 (C 1,920), such as 4 x 4096; other token counts, and every decode step,
-take ``torch.einsum``, as the JAX package does. The weights are random
-(``init_params`` from ``--seed``).
+take ``torch.einsum``, as the JAX package does. The hybrid zamba2-7b
+runs each of its 81 Mamba2 blocks' scan through the ``ssd_scan`` kernel
+(``kernels.ops.ssd``, chunk ``min(256, S)``: S must be a multiple of it)
+and its shared attention, 9 applications, through the flash kernel where
+S is a multiple of 128: a 4 x 4096 prefill runs 81 ``ssd_scan`` and 9
+flash launches. Its decode steps are plain PyTorch (the recurrent Mamba2
+step on the float32 state). The weights are random (``init_params`` from
+``--seed``).
 """
 
 from __future__ import annotations
@@ -37,7 +45,9 @@ from repro_torch.training.steps import make_decode_step, make_prefill_step
 class ServeResult(NamedTuple):
     tokens: torch.Tensor           # [B, gen] greedy tokens, int64
     prefill_logits: torch.Tensor   # [B, 1, V] logits of the prompt's last token
-    cache: dict                    # k, v [L, B, S + gen, Kv, Dh]
+    # k, v [L, B, S + gen, Kv, Dh]; the hybrid family's state, conv_x,
+    # conv_bc [L, B, ...] and attn_k, attn_v [L / every, B, S + gen, Kv, Dh]
+    cache: dict
     prefill_seconds: float         # host clock, prefill and its first token
     decode_seconds: float          # host clock, the gen - 1 decode steps
 

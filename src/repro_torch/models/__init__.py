@@ -1,6 +1,6 @@
-"""The LM model stack of the port (dense and MoE families): configs' dataclasses,
-parameter definitions, the training forward and the serving entry
-points."""
+"""The LM model stack of the port (dense, MoE and hybrid families): configs'
+dataclasses, parameter definitions, the training forward and the serving
+entry points."""
 
 from repro_torch.models.base import (
     ArchConfig, MLAConfig, MoEConfig, ParamDef, SSMConfig,

@@ -1,6 +1,7 @@
 """The decoder-only model stack for the dense and MoE families (GQA
-attention + a SwiGLU or GELU MLP, or a mixture of experts), with the serving
-entry points.
+attention + a SwiGLU or GELU MLP, or a mixture of experts) and the hybrid
+family (zamba2: Mamba2 blocks with one weight-shared attention block), with
+the serving entry points.
 
 Layers are stacked along a leading ``layers`` axis, as in the JAX package
 (``repro/models/transformer.py``); where JAX scans over the stack, the port
@@ -20,8 +21,9 @@ Entry points:
 
 The cache is updated IN PLACE (the JAX version is pure: its
 ``dynamic_update_slice`` returns a new cache); both functions return the
-dict they were given. The other branches (MLA, SSM, hybrid, enc-dec) raise
-naming their ROADMAP row.
+dict they were given. The other branches (MLA, RWKV6, enc-dec) raise naming
+their ROADMAP row, and so does training the hybrid family (``remat`` or
+gradients through its scan kernel: ROADMAP A11f).
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from repro_torch.models.base import ArchConfig, ParamDef, apply_norm, \
     map_defs, norm_defs
 from repro_torch.models.ffn import ffn_apply, ffn_defs
 from repro_torch.models.moe import moe_apply, moe_defs
+from repro_torch.models.ssm import mamba2_apply, mamba2_decode, mamba2_defs, \
+    ssm_dims
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -48,10 +52,7 @@ def _require_ported(cfg: ArchConfig) -> None:
     if cfg.family == "ssm":
         raise NotImplementedError(f"{cfg.name}: RWKV6 is not ported yet: "
                                   f"ROADMAP B6")
-    if cfg.family == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: the hybrid Mamba2 stack is "
-                                  f"not ported yet: ROADMAP B5")
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family}")
     if cfg.attention == "mla":
         raise NotImplementedError(f"{cfg.name}: MLA attention is not ported "
@@ -82,9 +83,16 @@ def _decoder_layer_defs(cfg: ArchConfig, L: int) -> dict:
 
 def model_defs(cfg: ArchConfig) -> dict:
     _require_ported(cfg)
-    defs: dict = {"embed": embed_defs(cfg),
-                  "layers": _decoder_layer_defs(cfg, cfg.num_layers),
-                  "final_norm": norm_defs(cfg, stacked=False)}
+    L = cfg.num_layers
+    defs: dict = {"embed": embed_defs(cfg)}
+    if cfg.family == "hybrid":  # zamba2
+        defs["layers"] = {"norm": norm_defs(cfg),
+                          "mamba": mamba2_defs(cfg, stacked_layers=L)}
+        defs["shared_attn"] = {"norm": norm_defs(cfg, stacked=False),
+                               "attn": gqa_defs(cfg, stacked_layers=0)}
+    else:
+        defs["layers"] = _decoder_layer_defs(cfg, L)
+    defs["final_norm"] = norm_defs(cfg, stacked=False)
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
                                    ("embed", "vocab"), "small",
@@ -98,13 +106,37 @@ def model_defs(cfg: ArchConfig) -> dict:
 
 def cache_spec(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     """ParamDef-style spec of the serving cache: k and v
-    ``[L, batch, max_seq, Kv, Dh]`` in the compute dtype."""
+    ``[L, batch, max_seq, Kv, Dh]`` in the compute dtype; for the hybrid
+    family the Mamba2 blocks' float32 SSM ``state [L, batch, H, N, P]``,
+    their conv tails ``conv_x [L, batch, K-1, d_inner]`` and ``conv_bc
+    [L, batch, K-1, 2N]``, and the shared attention's ``attn_k`` and
+    ``attn_v [L / every, batch, max_seq, Kv, Dh]``, one slot per
+    application."""
     _require_ported(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
-    return {"k": ParamDef(shape, axes, "zeros", cfg.compute_dtype),
-            "v": ParamDef(shape, axes, "zeros", cfg.compute_dtype)}
+    dt = cfg.compute_dtype
+    L = cfg.num_layers
+    kv = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv_axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        d_inner, H = ssm_dims(cfg)
+        GN = s.n_groups * s.d_state
+        n_attn = L // cfg.hybrid_attn_every
+        return {
+            "state": ParamDef((L, batch, H, GN // s.n_groups, s.head_dim),
+                              ("layers", "batch", "ssm_heads", "state",
+                               "head_dim"), "zeros", torch.float32),
+            "conv_x": ParamDef((L, batch, s.d_conv - 1, d_inner),
+                               ("layers", "batch", "conv", "ssm_inner"),
+                               "zeros", dt),
+            "conv_bc": ParamDef((L, batch, s.d_conv - 1, 2 * GN),
+                                ("layers", "batch", "conv", "ssm_bc"),
+                                "zeros", dt),
+            "attn_k": ParamDef((n_attn,) + kv, kv_axes, "zeros", dt),
+            "attn_v": ParamDef((n_attn,) + kv, kv_axes, "zeros", dt),
+        }
+    return {"k": ParamDef((L,) + kv, kv_axes, "zeros", dt),
+            "v": ParamDef((L,) + kv, kv_axes, "zeros", dt)}
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
@@ -177,6 +209,12 @@ def _stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; choose from {REMAT} "
                          f"or 'dots'")
+    if cfg.family == "hybrid":
+        if remat != "none":
+            raise NotImplementedError("training the hybrid family (remat) "
+                                      "is not ported yet: ROADMAP A11f")
+        return _hybrid_stack(cfg, params, x, angles=angles, caches=caches,
+                             cache_index=cache_index, impl=impl)
     layer_fn = _attn_mlp_layer(cfg, angles, impl, cache_index)
     layers = _unstack(params["layers"], cfg.num_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -191,6 +229,40 @@ def _stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
         if a is not None:
             aux = aux + a
     return x, caches, aux
+
+
+def _hybrid_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
+                  caches, cache_index, impl):
+    """zamba2: ``L / every`` groups of ``every`` Mamba2 blocks, each group
+    followed by ONE application of the weight-shared attention block
+    (``shared_attn``). Block ``g every + i`` reads and writes layer index
+    ``g every + i`` of the Mamba2 caches, application g attention slot g,
+    in place. A decode step (``cache_index`` given) runs the recurrent
+    Mamba2 step; otherwise the chunked scan. Returns (hidden, caches, aux
+    = 0)."""
+    every, L = cfg.hybrid_attn_every, cfg.num_layers
+    if every <= 0 or L % every:
+        raise ValueError(f"{L} layers do not split into groups of {every}")
+    layers = _unstack(params["layers"], L)
+    shared = params["shared_attn"]
+    for g in range(L // every):
+        for index in range(g * every, (g + 1) * every):
+            lp = layers[index]
+            lc = None if caches is None else \
+                {k: caches[k][index] for k in ("state", "conv_x", "conv_bc")}
+            h = apply_norm(cfg, lp["norm"], x)
+            if cache_index is None:
+                o, _ = mamba2_apply(cfg, lp["mamba"], h, cache=lc)
+            else:
+                o, _ = mamba2_decode(cfg, lp["mamba"], h, lc)
+            x = x + o.to(x.dtype)
+        h = apply_norm(cfg, shared["norm"], x)
+        ac = None if caches is None else \
+            {"k": caches["attn_k"][g], "v": caches["attn_v"][g]}
+        a, _ = gqa_apply(cfg, shared["attn"], h, angles=angles, cache=ac,
+                         cache_index=cache_index, impl=impl)
+        x = x + a.to(x.dtype)
+    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -140,7 +140,8 @@ def make_train_step(cfg: ArchConfig, tx: optim.GradientTransformation,
 def make_prefill_step(cfg: ArchConfig, batch: int, max_seq: int,
                       attn_impl: str = "auto") -> Callable:
     """prefill_step(params, tokens) -> (logits, cache). The cache is built
-    inside (zeros, on the tokens' device)."""
+    inside (zeros, on the tokens' device): k and v, or the hybrid family's
+    SSM state, conv tails and shared-attention k and v."""
     def prefill_step(params, tokens):
         cache = make_cache(cfg, batch, max_seq, device=tokens.device)
         return model_prefill(cfg, params, tokens, cache, attn_impl=attn_impl)

@@ -77,6 +77,16 @@ def test_the_moe_serving_slice_is_covered():
     assert (PORT / "kernels" / "csrc" / "gmm.cu").exists()
 
 
+def test_the_hybrid_serving_slice_is_covered():
+    """The import checks below walk the hybrid slice's modules and the
+    ``ssd_scan`` kernel too."""
+    mods = _port_modules()
+    for name in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+                 "repro_torch.configs.zamba2_7b"):
+        assert name in mods, name
+    assert (PORT / "kernels" / "csrc" / "ssd_scan.cu").exists()
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())

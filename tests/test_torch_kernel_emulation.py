@@ -23,7 +23,11 @@ within 2e-6 relative (measured 4.2e-7), bfloat16 within one bf16 ulp of
 the largest value (2^-7 relative; measured 3.0e-4: a few elements round
 the other way); ``gmm`` float32 within 2e-6 relative, bfloat16 within one
 bf16 ulp of the largest value (measured 0 and 0: at D = 160 the one FMA
-chain per output sums in the CPU library's order).
+chain per output sums in the CPU library's order); ``ssd_scan`` y and
+state within 2e-6 relative in float32 (measured 6.6e-8 and 5.3e-9: the
+float64 cumsum rounds alike, the sums of products differ in order), y
+within one bf16 ulp of its largest value and the float32 state within 2e-6
+in bfloat16 (measured 0 and 1.1e-8).
 """
 
 import ctypes
@@ -50,6 +54,9 @@ from repro_torch.kernels.flash_attention import bind_bwd, bwd_smem_plan, \
     flash_attention_bwd_plain, flash_attention_fwd_plain, scale_of
 from repro_torch.kernels.gmm import _bind as gmm_bind
 from repro_torch.kernels.gmm import gmm_plain
+from repro_torch.kernels.ssd_scan import _bind as ssd_bind
+from repro_torch.kernels.ssd_scan import smem_plan as ssd_smem_plan
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 STUB = r"""
 #pragma once
@@ -346,8 +353,45 @@ def test_gmm_source_matches_plain(emulated, dtype):
     assert _rel(got, want) <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (2, 3, 144, 32, 16, 72),    # odd chunk: a full and a partial sub-tile
+    (1, 2, 128, 64, 64, 128),   # two full sub-tiles, N = P = 64
+    (1, 2, 400, 16, 8, 200),    # zamba2's odd chunk of a 200-token prompt
+])
+def test_ssd_scan_source_matches_plain(emulated, b, h, s, p, n, chunk,
+                                       dtype):
+    """Two chunks per row (the state carried between them), the rows of a
+    chunk in sub-tiles of 64, B and C shared by the heads of a batch row;
+    the launcher refuses a chunk that does not divide S, and states the
+    shared-memory plan."""
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.standard_normal((b * h, s, p)) * 0.5, dtype=dtype)
+    dt = torch.tensor(rng.uniform(0.1, 0.9, (b * h, s)), dtype=torch.float32)
+    A = -torch.tensor(rng.uniform(0.5, 2.0, b * h), dtype=torch.float32)
+    Bm, Cm = (torch.tensor(rng.standard_normal((b, s, n)) * 0.3,
+                           dtype=dtype) for _ in range(2))
+    want_y, want_state = ssd_scan_plain(x, dt, A, Bm, Cm, heads=h,
+                                        chunk=chunk)
+    y = torch.empty_like(x)
+    state = torch.empty((b * h, n, p))
+    lib = ssd_bind(emulated["ssd_scan"])
+    ptrs = [t.data_ptr() for t in (x, dt, A, Bm, Cm, y, state)]
+    bf16 = int(dtype == torch.bfloat16)
+    assert lib.ssd_scan_launch(*ptrs, b * h, s, p, n, chunk, h, bf16,
+                               None) == 0
+    assert lib.ssd_scan_launch(*ptrs, b * h, s, p, n, 7, h, bf16,
+                               None) == -1
+    assert _rel(state, want_state) <= 2e-6
+    assert _rel(y, want_y) <= (2e-6 if dtype == torch.float32
+                               else 2.0 ** -7)
+    for q in (1, 24, chunk, 200, 256):
+        assert lib.ssd_scan_smem_bytes(q, n, p) == \
+            ssd_smem_plan(q, n, p)["total"]
+
+
 def test_the_emulation_covers_every_source():
     assert build.sources() == ["ddpg_learn", "episode_learn",
                                "flash_attention_bwd", "flash_attention_fwd",
-                               "gmm"]
+                               "gmm", "ssd_scan"]
     assert pathlib.Path(build.CSRC / "ddpg_update.cuh").exists()

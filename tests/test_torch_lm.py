@@ -179,7 +179,7 @@ def test_deepseek_moe_16b_is_the_published_size():
 
 
 @pytest.mark.parametrize("name,row", [
-    ("rwkv6-3b", "B6"), ("zamba2-7b", "B5"), ("minicpm3-4b", "A11"),
+    ("rwkv6-3b", "B6"), ("minicpm3-4b", "A11"),
     ("whisper-large-v3", "A11"), ("qwen2-vl-72b", "A11")])
 def test_unported_architectures_name_their_roadmap_row(name, row):
     for get in (configs.get_config, configs.get_smoke_config):
@@ -192,7 +192,6 @@ def test_unported_architectures_name_their_roadmap_row(name, row):
 @pytest.mark.parametrize("change,row", [
     ({"attention": "mla", "mla": MLAConfig()}, "A11"),
     ({"family": "ssm"}, "B6"),
-    ({"family": "hybrid", "ssm": SSMConfig(), "hybrid_attn_every": 2}, "B5"),
     ({"encoder_layers": 2}, "A11")])
 def test_unported_branches_name_their_roadmap_row(change, row):
     cfg = dataclasses.replace(configs.get_smoke_config("yi-9b"), **change)
@@ -200,6 +199,29 @@ def test_unported_branches_name_their_roadmap_row(change, row):
     for fn in (tt.model_defs, lambda c: tt.cache_spec(c, 1, 8)):
         with pytest.raises(NotImplementedError, match=row):
             fn(cfg)
+
+
+@pytest.mark.parametrize("case", ["arch", "branch"])
+def test_the_hybrid_family_is_ported(case):
+    """zamba2-7b's configs load, and the hybrid branch builds its defs and
+    cache (a dense config turned hybrid: 2 Mamba2 blocks, the shared
+    attention after both)."""
+    if case == "arch":
+        for get in (configs.get_config, configs.get_smoke_config):
+            assert get("zamba2-7b").family == "hybrid"
+        assert "zamba2-7b" in configs.ARCH_NAMES
+        return
+    cfg = dataclasses.replace(configs.get_smoke_config("yi-9b"),
+                              family="hybrid", ssm=SSMConfig(chunk=32),
+                              hybrid_attn_every=2)
+    defs = tt.model_defs(cfg)
+    assert set(defs) == {"embed", "layers", "shared_attn", "final_norm",
+                         "lm_head"}
+    assert set(defs["layers"]) == {"norm", "mamba"}
+    cache = tt.make_cache(cfg, 1, 8, device="cpu")
+    assert set(cache) == {"state", "conv_x", "conv_bc", "attn_k", "attn_v"}
+    assert cache["state"].dtype == torch.float32
+    assert cache["attn_k"].shape[0] == cfg.num_layers // 2
 
 
 def test_init_params_follows_the_reference_scale_rule():
