@@ -133,23 +133,50 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   ``SSD_*`` bf16 bounds), and through the plain version: the
                   last-token logits' gap is reported, not held (random
                   weights amplify rounding);
- 15. timing       CUDA-event medians of every kernel and its plain version:
+ 15. check_wkv    the ``wkv6_scan`` kernel against its plain version on the
+                  same numpy inputs: float32 at BH 6, S 384, c 64, chunk 64;
+                  at BH 6, S 120, c 16, chunk 24 (the smoke head size, a
+                  chunk below 64); under strong decay (about -150 per
+                  step); bfloat16 at rwkv6-3b's forward shape (BH 160, S
+                  4096, c 64, chunk 64); y and the float32 state held within
+                  ``WKV_*`` below, two launches bitwise equal;
+ 16. forward_rwkv the scoring and loss path, ``repro_torch.models.forward``
+                  on rwkv6-3b at its published size in bfloat16 (random
+                  weights from a seeded ``torch.Generator`` on the card),
+                  under ``torch.no_grad()``: 4 x 4096 tokens and 4 x 200
+                  (padded to a scan of 256), each launching ``wkv6_scan``
+                  exactly 32 times (once per time-mix block), finite logits,
+                  the cross-entropy against the shifted tokens reported;
+                  then the 4 x 4096 forward once more with the kernel held
+                  against its plain version on each of the 32 layers' own
+                  inputs (the ``WKV_*`` bf16 bounds), and through the plain
+                  version: the logits' gap is reported, not held (random
+                  weights amplify rounding);
+ 17. serve_rwkv   the RWKV6 serving path, ``repro_torch.launch.serve.serve``
+                  on rwkv6-3b: 4 x 4096 -> 8 and 4 x 200 -> 8. As in the JAX
+                  package, prefill runs ``wkv_chunked`` (plain PyTorch) from
+                  the cache's state and decode the O(1) recurrence, so no
+                  ``wkv6_scan`` launch at all (held at 0); finite tokens, and
+                  the WKV state left finite in the compute type (bf16);
+ 18. timing       CUDA-event medians of every kernel and its plain version:
                   the learners at N = 1 and N = 1024 (the episode's plain
                   version at N = 1 only, its pre-draw timed apart), the flash
                   forward at the two serving shapes beside PyTorch's
                   ``scaled_dot_product_attention`` on the same tensors, the
                   flash forward, dq and dk/dv at the training shape beside
                   SDPA's forward and backward, ``gmm`` at the two MoE
-                  serving shapes beside ``torch.bmm``, and ``ssd_scan`` at
-                  zamba2-7b's serving shape (no PyTorch call computes the
-                  scan); each beside the bound from the shapes.
+                  serving shapes beside ``torch.bmm``, ``ssd_scan`` at
+                  zamba2-7b's serving shape and ``wkv6_scan`` at rwkv6-3b's
+                  forward shape (no PyTorch call computes either scan);
+                  each beside the bound from the shapes.
 
-Then the ``{"kernels": [...]}`` line, ``nvidia-smi``'s line, and last
+Then the whole run's seconds, the ``{"kernels": [...]}`` line,
+``nvidia-smi``'s line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
-Phases 1-12 and the matching timings are the earlier slices' and run as
+Phases 1-14 and the matching timings are the earlier slices' and run as
 they did.
 
     python3 chip_smoke.py --profile
@@ -327,6 +354,32 @@ SSD_CASES = (("float32", (2, 3, 400, 32, 16, 200)),
 HYBRID_REQUESTS = ((4, 4096, 8), (4, 200, 8))
 HYBRID_ARCH = "zamba2-7b"
 HYBRID_SEED = 0
+#: wkv6_scan kernel vs its plain version on the same inputs, as
+#: max|kernel - plain| / max|plain|: y in float32 within WKV_F32_RTOL; y in
+#: bfloat16 within WKV_BF16_RTOL (one bf16 step of the largest value) with
+#: at most WKV_BF16_OFF_SHARE of the elements further apart than one bf16
+#: step of the plain value (the two sum the same float32 products in
+#: another order, and y rounds once to bf16); the float32 state within
+#: WKV_STATE_RTOL either way
+WKV_F32_RTOL = 1e-5
+WKV_BF16_RTOL = 2.0 ** -7
+WKV_BF16_OFF_SHARE = 1e-3
+WKV_STATE_RTOL = 1e-5
+#: (dtype, (BH, S, c, chunk, w0)), logw = -exp(clip(N(0, 1) + w0, -8, 6)):
+#: small float32 shapes (rwkv6-3b's head size and chunk; the smoke head
+#: size at a chunk below 64; strong decay, about -150 per step), then
+#: rwkv6-3b's forward of 4 x 4096 tokens in bf16 (40 heads of 64, chunk 64)
+WKV_CASES = (("float32", (6, 384, 64, 64, 0.0)),
+             ("float32", (6, 120, 16, 24, 0.0)),
+             ("float32", (4, 256, 64, 64, 5.0)),
+             ("bfloat16", (160, 4096, 64, 64, 0.0)))
+#: the RWKV6 forward passes (batch, tokens): at 4 x 200 the time mix pads
+#: the sequence to 256, a multiple of the chunk 64
+RWKV_FORWARD = ((4, 4096), (4, 200))
+#: the RWKV6 serving requests: (batch, prompt tokens, generated tokens)
+RWKV_REQUESTS = ((4, 4096, 8), (4, 200, 8))
+RWKV_ARCH = "rwkv6-3b"
+RWKV_SEED = 0
 
 
 def emit(obj) -> None:
@@ -1782,13 +1835,15 @@ def ssd_bounds(dtype: str) -> dict:
     return {"y_rel_err": SSD_F32_RTOL, "state_rel_err": SSD_STATE_RTOL}
 
 
-def hold_ssd(err: dict, where: str) -> None:
-    """Raise unless ``ssd_errors`` are within the ``SSD_*`` bounds."""
-    bounds = ssd_bounds("bfloat16" if "y_share_over_one_step" in err
-                        else "float32")
+def hold_ssd(err: dict, where: str, kernel: str = "ssd_scan",
+             bounds_of=ssd_bounds) -> None:
+    """Raise unless ``ssd_errors`` are within ``bounds_of(dtype)`` (the
+    ``SSD_*`` bounds by default)."""
+    bounds = bounds_of("bfloat16" if "y_share_over_one_step" in err
+                       else "float32")
     over = {k: (err[k], b) for k, b in bounds.items() if not err[k] <= b}
     if over:
-        raise AssertionError(f"ssd_scan kernel vs plain {where}: (value, "
+        raise AssertionError(f"{kernel} kernel vs plain {where}: (value, "
                              f"bound) {over}")
 
 
@@ -2054,6 +2109,343 @@ def phase_timing_ssd(smi: str) -> list:
     del q, k, v
     torch.cuda.empty_cache()
     return [row]
+
+
+def wkv_inputs(shape, dtype, seed: int):
+    """r, k, v [BH, S, c] ~ 0.5 N(0, 1) in ``dtype``, logw [BH, S, c] =
+    -exp(clip(N(0, 1) + w0, -8, 6)) float32 (the model's ``_decay`` clip),
+    u [BH, c] ~ 0.5 N(0, 1) in ``dtype``, from numpy, on the card."""
+    import numpy as np
+    import torch
+
+    BH, S, c, _, w0 = shape
+    rng = np.random.default_rng(seed)
+    to = getattr(torch, dtype)
+    r, k, v = (torch.as_tensor(rng.standard_normal((BH, S, c), np.float32)
+                               * np.float32(0.5)).to("cuda", to)
+               for _ in range(3))
+    logw = -np.exp(np.clip(rng.standard_normal((BH, S, c), np.float32)
+                           + np.float32(w0), -8, 6))
+    u = rng.standard_normal((BH, c), np.float32) * np.float32(0.5)
+    return (r, k, v, torch.as_tensor(logw).cuda(),
+            torch.as_tensor(u).to("cuda", to))
+
+
+def wkv_bounds(dtype: str) -> dict:
+    if dtype == "bfloat16":
+        return {"y_rel_err": WKV_BF16_RTOL,
+                "y_share_over_one_step": WKV_BF16_OFF_SHARE,
+                "state_rel_err": WKV_STATE_RTOL}
+    return {"y_rel_err": WKV_F32_RTOL, "state_rel_err": WKV_STATE_RTOL}
+
+
+def hold_wkv(err: dict, where: str) -> None:
+    """Raise unless ``ssd_errors`` of the WKV scan are within the ``WKV_*``
+    bounds."""
+    hold_ssd(err, where, "wkv6_scan", wkv_bounds)
+
+
+def phase_check_wkv() -> dict:
+    """The ``wkv6_scan`` kernel against its plain version on the same numpy
+    inputs (``WKV_CASES``): two launches bitwise equal, finite, within the
+    ``WKV_*`` bounds. Returns the worst errors per dtype."""
+    import torch
+
+    from repro_torch.kernels.wkv6_scan import smem_plan, wkv6_scan, \
+        wkv6_scan_plain
+
+    worst = {}
+    for i, (dtype, shape) in enumerate(WKV_CASES):
+        BH, S, c, chunk, w0 = shape
+        args = wkv_inputs(shape, dtype, seed=1200 + i)
+        y, state = wkv6_scan(*args, chunk=chunk)
+        y2, state2 = wkv6_scan(*args, chunk=chunk)
+        py, pstate = wkv6_scan_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(state, state2)):
+            raise AssertionError("two wkv6_scan launches on the same inputs "
+                                 "differ")
+        if not (bool(torch.isfinite(y.float()).all())
+                and bool(torch.isfinite(state).all())):
+            raise AssertionError("wkv6_scan kernel produced a non-finite "
+                                 "value")
+        err = ssd_errors(y, state, py, pstate)
+        emit({"phase": "check_wkv", "dtype": dtype,
+              "shape_BH_S_c_chunk_w0": list(shape), "bitwise_repeat": True,
+              "bitwise_equal_to_plain": bool(torch.equal(y, py) and
+                                             torch.equal(state, pstate)),
+              "smem_bytes": smem_plan(chunk, c)["total"], **err,
+              "bounds": wkv_bounds(dtype)})
+        hold_wkv(err, f"({dtype}, {shape})")
+        worst[dtype] = worst_of([worst.get(dtype, {}), err],
+                                [k for k in SSD_ERROR_KEYS if k in err])
+        del args, y, y2, state, state2, py, pstate
+    torch.cuda.empty_cache()
+    return worst
+
+
+def rwkv_tokens(cfg, batch: int, seq: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seq)
+    return torch.as_tensor(rng.integers(1, cfg.vocab_size, (batch, seq)),
+                           device="cuda")
+
+
+def phase_forward_rwkv() -> dict:
+    """The full-sequence forward of rwkv6-3b on the card (see the module
+    docstring): the scoring and loss path, one ``wkv6_scan`` launch per
+    time-mix block."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv6_scan import wkv6_scan, wkv6_scan_plain
+    from repro_torch.models import forward, init_params, model_defs
+    from repro_torch.training.losses import cross_entropy
+
+    cfg = get_config(RWKV_ARCH)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(RWKV_SEED), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     tree_leaves(params)) / 1e9
+    torch.cuda.empty_cache()   # init's float32 draws
+
+    def run(tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = forward(cfg, params, tokens)
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    # the first use of cuBLAS's bf16 products and of the kernel at the
+    # request's shapes, outside the counted run
+    for batch, seq in RWKV_FORWARD:
+        run(rwkv_tokens(cfg, batch, seq))
+    torch.cuda.empty_cache()
+
+    rows, kept = [], {}
+    wkv6_scan.launches = 0
+    for batch, seq in RWKV_FORWARD:
+        tokens = rwkv_tokens(cfg, batch, seq)
+        torch.cuda.reset_peak_memory_stats()
+        before = wkv6_scan.launches
+        logits, seconds = run(tokens)
+        launched = wkv6_scan.launches - before
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if launched != L:
+            raise AssertionError(f"forward_rwkv ({batch}x{seq}): {launched} "
+                                 f"wkv6_scan launches, want {L}")
+        if tuple(logits.shape) != (batch, seq, cfg.vocab_size) or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"forward_rwkv ({batch}x{seq}): logits "
+                                 f"{tuple(logits.shape)} or non-finite")
+        with torch.no_grad():
+            ce = float(cross_entropy(logits[:, :-1], tokens[:, 1:]))
+        if not math.isfinite(ce):
+            raise AssertionError(f"forward_rwkv ({batch}x{seq}): "
+                                 f"cross-entropy {ce}")
+        row = {"phase": "forward_rwkv", "arch": cfg.name, "layers": L,
+               "d_model": cfg.d_model, "heads": cfg.d_model
+               // cfg.rwkv_head_size, "batch": batch, "tokens": seq,
+               "scan_length": -(-seq // 64) * 64 if seq >= 64 else seq,
+               "wkv6_scan_launches": launched, "forward_ms": seconds * 1e3,
+               "tokens_per_s": batch * seq / seconds,
+               "cross_entropy": ce, "log_vocab": math.log(cfg.vocab_size),
+               "peak_memory_gb": peak_gb, "weights_gb": weights_gb,
+               "init_seconds": init_s}
+        if seq == RWKV_FORWARD[0][1]:
+            kept = {"tokens": tokens, "logits": logits, "row": row}
+        else:
+            emit(row)
+            rows.append(row)
+        del logits
+    launches = wkv6_scan.launches
+    if launches != L * len(RWKV_FORWARD):
+        raise AssertionError(f"forward_rwkv: {launches} wkv6_scan launches, "
+                             f"want {L * len(RWKV_FORWARD)}")
+
+    # the 4 x 4096 forward once more: the kernel held against its plain
+    # version on each layer's own inputs, then the forward through the
+    # plain version (ops dispatches a CUDA tensor to the kernel; these runs
+    # swap what it calls)
+    kernel = ops.wkv6_scan
+    layer_errs = []
+
+    def checked_route(*args, chunk):
+        y, state = kernel(*args, chunk=chunk)
+        py, pstate = wkv6_scan_plain(*args, chunk=chunk)
+        layer_errs.append(ssd_errors(y, state, py, pstate))
+        return y, state
+
+    def routed(route):
+        ops.wkv6_scan = route
+        try:
+            return run(kept["tokens"])
+        finally:
+            ops.wkv6_scan = kernel
+
+    routed(checked_route)
+    if len(layer_errs) != L:
+        raise AssertionError(f"forward_rwkv: {len(layer_errs)} checked "
+                             f"scans, want {L}")
+    for i, err in enumerate(layer_errs):
+        hold_wkv(err, f"forward_rwkv, layer {i}")
+    plain_logits, plain_s = routed(wkv6_scan_plain)
+    if wkv6_scan.launches != launches + L:
+        raise AssertionError("forward_rwkv: the plain path launched the "
+                             "wkv6_scan kernel")
+    wkv6_scan.launches = launches  # checking launches are not counted
+    row = kept["row"]
+    row.update({
+        "layers_held": worst_of(layer_errs, SSD_ERROR_KEYS),
+        "layer_bounds": wkv_bounds("bfloat16"),
+        "plain_forward_ms": plain_s * 1e3,
+        "vs_plain_version": {
+            "logits_rel_err": rel_err(kept["logits"], plain_logits),
+            "logits_max_abs_err": float((kept["logits"].float()
+                                         - plain_logits.float()).abs().max()),
+            "same_argmax_share": float((kept["logits"].argmax(-1)
+                                        == plain_logits.argmax(-1))
+                                       .float().mean())}})
+    emit(row)
+    rows.insert(0, row)
+    del params, kept, plain_logits
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
+def phase_serve_rwkv() -> dict:
+    """The RWKV6 serving path on the card (see the module docstring)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv6_scan import wkv6_scan
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import init_params, model_defs
+
+    cfg = get_config(RWKV_ARCH)
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(RWKV_SEED), "cuda")
+    torch.cuda.empty_cache()   # init's float32 draws
+    per_call = {"prefill": [], "decode": []}
+
+    def counted(kind, make):
+        def make_counted(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a, **kw):
+                before = wkv6_scan.launches
+                out = step(*a, **kw)
+                per_call[kind].append(wkv6_scan.launches - before)
+                return out
+            return run
+        return make_counted
+
+    # the first use of the serving path's products, outside the counted run
+    serve_mod.serve(cfg, rwkv_tokens(cfg, 1, 256), 2, params=params,
+                    device="cuda")
+    torch.cuda.synchronize()
+
+    rows = []
+    make_prefill, make_decode = serve_mod.make_prefill_step, \
+        serve_mod.make_decode_step
+    serve_mod.make_prefill_step = counted("prefill", make_prefill)
+    serve_mod.make_decode_step = counted("decode", make_decode)
+    try:
+        wkv6_scan.launches = 0
+        for batch, seq, gen in RWKV_REQUESTS:
+            for kind in per_call:
+                per_call[kind].clear()
+            torch.cuda.reset_peak_memory_stats()
+            res = serve_mod.serve(cfg, rwkv_tokens(cfg, batch, seq), gen,
+                                  params=params, device="cuda")
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if per_call["prefill"] != [0] or \
+                    per_call["decode"] != [0] * (gen - 1):
+                raise AssertionError(
+                    f"serve_rwkv ({batch}x{seq}): wkv6_scan launches per "
+                    f"prefill {per_call['prefill']}, per decode step "
+                    f"{per_call['decode']}; want none (prefill runs "
+                    f"wkv_chunked, decode the recurrence)")
+            if tuple(res.tokens.shape) != (batch, gen) or not bool(
+                    torch.isfinite(res.prefill_logits.float()).all()):
+                raise AssertionError(f"serve_rwkv ({batch}x{seq}): tokens "
+                                     f"{tuple(res.tokens.shape)} or "
+                                     f"non-finite logits")
+            state = res.cache["state"]
+            if state.dtype != cfg.compute_dtype or not bool(
+                    torch.isfinite(state.float()).all()):
+                raise AssertionError(f"serve_rwkv ({batch}x{seq}): the WKV "
+                                     f"state is {state.dtype} or not "
+                                     f"finite; want finite "
+                                     f"{cfg.compute_dtype}")
+            row = {"phase": "serve_rwkv", "arch": cfg.name,
+                   "layers": cfg.num_layers, "batch": batch, "prompt": seq,
+                   "generated": gen,
+                   "wkv6_scan_launches_per_prefill": per_call["prefill"][0],
+                   "wkv6_scan_launches_per_decode_step": 0,
+                   "prefill_ms": res.prefill_seconds * 1e3,
+                   "decode_ms_per_token":
+                       res.decode_seconds / (gen - 1) * 1e3,
+                   "state_dtype": str(state.dtype).removeprefix("torch."),
+                   "peak_memory_gb": peak_gb,
+                   "first_sequence": res.tokens[0].tolist()}
+            emit(row)
+            rows.append(row)
+            del res, state
+        launches = wkv6_scan.launches
+    finally:
+        serve_mod.make_prefill_step = make_prefill
+        serve_mod.make_decode_step = make_decode
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
+def phase_timing_wkv(smi: str) -> dict:
+    """CUDA-event medians of ``wkv6_scan`` and of its plain version at
+    rwkv6-3b's bf16 forward shape (4 x 4096 tokens: BH 160, chunk 64, c
+    64), beside the bound from ``work()``: the operations (exps counted as
+    one each) over the float32 rate, since the decayed scores are no matrix
+    product, or the bytes, whichever is larger. No single PyTorch call
+    computes the WKV scan, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.wkv6_scan import wkv6_scan, wkv6_scan_plain, \
+        work
+
+    dtype, shape = WKV_CASES[3]
+    BH, S, c, chunk, _ = shape
+    args = wkv_inputs(shape, dtype, seed=1250)
+    before = wkv6_scan.launches
+    kernel_ms = time_ms(lambda: wkv6_scan(*args, chunk=chunk), 5, warmup=1)
+    wkv6_scan.launches = before  # timing launches are not counted
+    plain_ms = time_ms(lambda: wkv6_scan_plain(*args, chunk=chunk), 3,
+                       warmup=1)
+    wk = work(BH, S, c, chunk, args[0].dtype)
+    flops_ms = wk["flops"] / PEAK_F32_FLOPS * 1e3
+    bytes_ms = wk["bytes"] / PEAK_BYTES * 1e3
+    row = {"phase": "timing", "kernel": "wkv6_scan", "dtype": dtype,
+           "shape_BH_S_c_chunk_w0": list(shape), "ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           "library_call": "none: no single PyTorch call computes the WKV "
+                           "scan",
+           "bound_ms": max(flops_ms, bytes_ms),
+           "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+           "flops": wk["flops"], "exps": wk["exps"], "bytes": wk["bytes"],
+           "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
+           "tflops": wk["flops"] / kernel_ms / 1e9, "card": smi}
+    emit(row)
+    del args
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_profile() -> None:
@@ -2429,6 +2821,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    run_t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -2472,14 +2865,20 @@ def main() -> int:
     moe = phase_serve_moe()
     ssd_err = phase_check_ssd()
     hybrid = phase_serve_hybrid()
+    wkv_err = phase_check_wkv()
+    rwkv_fwd = phase_forward_rwkv()
+    rwkv_serve = phase_serve_rwkv()
     rows = phase_timing(configs, smi)
     ep_rows = phase_timing_episode(smi)
     flash_rows = phase_timing_flash(smi)
     train_rows = {r["kernel"]: r for r in phase_timing_flash_train(smi)}
     gmm_rows = phase_timing_gmm(smi)
     ssd_row = phase_timing_ssd(smi)[0]
+    wkv_row = phase_timing_wkv(smi)
+    rwkv_held = next(r for r in rwkv_fwd["rows"] if "layers_held" in r)
     moe_held = next(r for r in moe["rows"] if "layers_held" in r)
     hybrid_held = next(r for r in hybrid["rows"] if "layers_held" in r)
+    emit({"phase": "run", "seconds": time.perf_counter() - run_t0})
 
     main_row = next(r for r in rows
                     if r["space"] == "2d" and r["sessions"] == SEED_SESSIONS)
@@ -2605,6 +3004,25 @@ def main() -> int:
         "bound_f32_cuda_cores_ms": ssd_row["bound_f32_cuda_cores_ms"],
         "library_ms": None, "library_call": ssd_row["library_call"],
         "shape_BHSPN_chunk": ssd_row["shape_BHSPN_chunk"],
+        "dtype": "bfloat16", "ok": True}, {
+        "name": "wkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:69",
+        "launches": rwkv_fwd["launches"] + rwkv_serve["launches"],
+        "launches_by_path": {"forward_rwkv": rwkv_fwd["launches"],
+                             "serve_rwkv": rwkv_serve["launches"]},
+        "max_abs_err": wkv_err["bfloat16"]["y_max_abs_err"],
+        "y_rel_err": wkv_err["bfloat16"]["y_rel_err"],
+        "bf16_share_over_one_step":
+            wkv_err["bfloat16"]["y_share_over_one_step"],
+        "state_rel_err": max(wkv_err[d]["state_rel_err"]
+                             for d in ("bfloat16", "float32")),
+        "f32_y_rel_err": wkv_err["float32"]["y_rel_err"],
+        "forward_layers_held": rwkv_held["layers_held"],
+        "ms": wkv_row["ms"], "plain_ms": wkv_row["plain_ms"],
+        "bound_ms": wkv_row["bound_ms"], "bound_by": wkv_row["bound_by"],
+        "library_ms": None, "library_call": wkv_row["library_call"],
+        "shape_BH_S_c_chunk_w0": wkv_row["shape_BH_S_c_chunk_w0"],
         "dtype": "bfloat16", "ok": True}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,8 @@ architectures the port runs.
 ``get_config`` / ``get_smoke_config`` return the port's ``ArchConfig`` of a
 registered name: the published configuration, or a few-layer, narrow one
 for tests. Each is a copy of the JAX package's ``repro/configs/<name>.py``.
-The registered names cover the dense, MoE and hybrid (Mamba2 + shared
-attention) families. The other architectures of the JAX package need model
+The registered names cover the dense, MoE, hybrid (Mamba2 + shared
+attention) and ``ssm`` (RWKV6) families. The other architectures of the JAX package need model
 families the port does not have yet; asking for one raises
 ``NotImplementedError`` naming the ROADMAP row that ports it.
 """
@@ -24,6 +24,7 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "arctic-480b": "arctic_480b",
     "zamba2-7b": "zamba2_7b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 #: architectures of the JAX package still to port -> the ROADMAP row
@@ -31,7 +32,6 @@ NOT_PORTED = {
     "qwen2-vl-72b": "A11 (vlm: M-RoPE, patch embeddings)",
     "whisper-large-v3": "A11 (encoder-decoder)",
     "minicpm3-4b": "A11 (MLA attention)",
-    "rwkv6-3b": "B6 (RWKV6)",
 }
 
 ARCH_NAMES = list(_MODULES)

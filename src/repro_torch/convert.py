@@ -151,19 +151,24 @@ def lm_params_from_jax(tree, device=None) -> dict:
     """The JAX package's LM parameter tree (nested dicts of arrays; numpy
     or jax leaves) as the port's nested dict of tensors on ``device``: any
     family's tree, the hybrid's ``layers.{norm, mamba}`` and
-    ``shared_attn.{norm, attn}`` too. The layouts are the same (stacked
-    ``[L, ...]`` layers, ``[in, ...out]`` projections), so this is a tree
-    walk; dtypes map one to one."""
+    ``shared_attn.{norm, attn}`` and the ``ssm`` family's ``layers.{tm_norm,
+    time_mix, cm_norm}`` (the channel mix's ``cm_*`` inside ``time_mix``)
+    too. The layouts are the same (stacked ``[L, ...]`` layers, ``[in,
+    ...out]`` projections), so this is a tree walk; dtypes map one to
+    one."""
     return _tree_from_numpy(tree, resolve_device(device))
 
 
 def lm_cache_from_jax(tree, device=None) -> dict:
     """The JAX package's serving cache as the port's, on ``device``, dtypes
-    kept: ``{"k", "v"}`` of ``[L, B, S_max, Kv, Dh]``, or the hybrid's
-    ``{"state" [L, B, H, N, P], "conv_x", "conv_bc", "attn_k", "attn_v"}``.
-    (After a bf16 prefill off the TPU the JAX package's hybrid ``state`` is
-    bf16, where its ``make_cache`` declares float32; the port's is always
-    float32, so convert such a cache's state with ``.float()``.)"""
+    kept: ``{"k", "v"}`` of ``[L, B, S_max, Kv, Dh]``, the hybrid's
+    ``{"state" [L, B, H, N, P], "conv_x", "conv_bc", "attn_k", "attn_v"}``,
+    or the ``ssm`` family's ``{"state" [L, B, H, c, c], "tm_last",
+    "cm_last"}``. (After a bf16 prefill off the TPU the JAX package's hybrid
+    ``state`` is bf16, where its ``make_cache`` declares float32; the port's
+    is always float32, so convert such a cache's state with ``.float()``.
+    Both packages leave the ``ssm`` family's state in the compute type after
+    a prefill, so it converts as it is.)"""
     return _tree_from_numpy(tree, resolve_device(device))
 
 

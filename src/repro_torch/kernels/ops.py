@@ -16,6 +16,7 @@ from repro_torch.kernels.flash_attention import flash_attention_bwd, \
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain
 from repro_torch.kernels.gmm import gmm, gmm_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.wkv6_scan import wkv6_scan, wkv6_scan_plain
 
 #: ``attention`` takes sequence lengths that are multiples of this, as the
 #: JAX package's ``kernels/ops.py::attention`` routes to its kernel
@@ -172,3 +173,43 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"no SSD scan for device {x.device}")
     n = Bm.shape[-1]
     return y.reshape(b, h, s, p).transpose(1, 2), state.reshape(b, h, n, p)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, chunk: int = 64) -> tuple:
+    """The chunked RWKV6 WKV scan in the model layout
+    (``kernels.wkv6_scan``): r, k, v ``[B, S, H, c]`` in one type, logw
+    ``[B, S, H, c]`` float32 (<= 0), u ``[H, c]`` -> ``(y [B, S, H, c]`` in
+    r's type``, state [B, H, c, c]`` float32``)``. Folds to ``[B H, S, c]``
+    (u to ``[B H, c]``) and unfolds the results. A CUDA tensor runs the
+    kernel (``wkv6_scan``, looked up by name in this module at each call), a
+    CPU tensor its plain version (``wkv6_scan_plain``), both at ``chunk``,
+    as the JAX package's TPU path runs its kernel. ``S`` must be a multiple
+    of ``chunk``; the port raises ``ValueError`` otherwise.
+
+    The kernel has no gradient: a CUDA input that needs one raises
+    ``NotImplementedError`` (ROADMAP A11g). On the CPU, autograd flows
+    through the plain version."""
+    B, S, H, c = r.shape
+    if S % chunk:
+        raise ValueError(f"the WKV scan takes a sequence length that is a "
+                         f"multiple of the chunk, got {S} and {chunk}")
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(B * H, S, c)
+
+    uf = u[None].expand(B, H, c).reshape(B * H, c)
+    if r.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, logw, u)):
+            raise NotImplementedError(
+                "wkv6_scan has no gradient kernel yet: ROADMAP A11g (RWKV6 "
+                "training)")
+        y, state = wkv6_scan(*(fold(t).contiguous() for t in (r, k, v, logw)),
+                             uf.contiguous(), chunk=chunk)
+    elif r.device.type == "cpu":
+        y, state = wkv6_scan_plain(*(fold(t) for t in (r, k, v, logw)), uf,
+                                   chunk=chunk)
+    else:
+        raise ValueError(f"no WKV scan for device {r.device}")
+    return y.reshape(B, H, S, c).transpose(1, 2), state.reshape(B, H, c, c)

@@ -8,6 +8,8 @@ loop, one token per step.
         --arch deepseek-moe-16b --batch 4 --prompt-len 4096 --gen 8
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch zamba2-7b --batch 4 --prompt-len 4096 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch rwkv6-3b --batch 4 --prompt-len 4096 --gen 8
 
 On the card, a prefill whose prompt length is a multiple of 128 runs its
 attention through the flash-attention kernel (``kernels.ops.attention``,
@@ -23,8 +25,14 @@ runs each of its 81 Mamba2 blocks' scan through the ``ssd_scan`` kernel
 and its shared attention, 9 applications, through the flash kernel where
 S is a multiple of 128: a 4 x 4096 prefill runs 81 ``ssd_scan`` and 9
 flash launches. Its decode steps are plain PyTorch (the recurrent Mamba2
-step on the float32 state). The weights are random (``init_params`` from
-``--seed``).
+step on the float32 state). The RWKV6 model rwkv6-3b serves as the JAX
+package serves it: its prefill runs the chunked WKV scan ``wkv_chunked`` in
+plain PyTorch from the cache's state (at chunk ``min(64, S)``, the prompt
+padded to a multiple of it), and leaves the state in the compute type;
+its decode steps run the O(1) recurrence. Neither launches the
+``wkv6_scan`` kernel, which runs in the full-sequence forward
+(``models.forward``, the scoring and loss path). The weights are random
+(``init_params`` from ``--seed``).
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ class ServeResult(NamedTuple):
     tokens: torch.Tensor           # [B, gen] greedy tokens, int64
     prefill_logits: torch.Tensor   # [B, 1, V] logits of the prompt's last token
     # k, v [L, B, S + gen, Kv, Dh]; the hybrid family's state, conv_x,
-    # conv_bc [L, B, ...] and attn_k, attn_v [L / every, B, S + gen, Kv, Dh]
+    # conv_bc [L, B, ...] and attn_k, attn_v [L / every, B, S + gen, Kv, Dh];
+    # the ssm family's state [L, B, H, c, c], tm_last, cm_last [L, B, D]
     cache: dict
     prefill_seconds: float         # host clock, prefill and its first token
     decode_seconds: float          # host clock, the gen - 1 decode steps

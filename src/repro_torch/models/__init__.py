@@ -1,5 +1,5 @@
-"""The LM model stack of the port (dense, MoE and hybrid families): configs'
-dataclasses, parameter definitions, the training forward and the serving
+"""The LM model stack of the port (dense, MoE, hybrid and ``ssm`` (RWKV6)
+families): configs' dataclasses, parameter definitions, the training forward and the serving
 entry points."""
 
 from repro_torch.models.base import (

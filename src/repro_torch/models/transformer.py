@@ -1,6 +1,7 @@
 """The decoder-only model stack for the dense and MoE families (GQA
-attention + a SwiGLU or GELU MLP, or a mixture of experts) and the hybrid
-family (zamba2: Mamba2 blocks with one weight-shared attention block), with
+attention + a SwiGLU or GELU MLP, or a mixture of experts), the hybrid
+family (zamba2: Mamba2 blocks with one weight-shared attention block) and
+the ``ssm`` family (rwkv6: time mix and channel mix, no attention), with
 the serving entry points.
 
 Layers are stacked along a leading ``layers`` axis, as in the JAX package
@@ -21,9 +22,12 @@ Entry points:
 
 The cache is updated IN PLACE (the JAX version is pure: its
 ``dynamic_update_slice`` returns a new cache); both functions return the
-dict they were given. The other branches (MLA, RWKV6, enc-dec) raise naming
-their ROADMAP row, and so does training the hybrid family (``remat`` or
-gradients through its scan kernel: ROADMAP A11f).
+dict they were given. (The ``ssm`` family's ``state`` entry is replaced
+where its type changes: a prefill leaves it in the compute type, as the
+JAX package does.) The other branches (MLA, enc-dec) raise naming their
+ROADMAP row, and so does training the hybrid and ``ssm`` families
+(``remat``, or gradients through their scan kernels on the card: ROADMAP
+A11f and A11g).
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from repro_torch.models.base import ArchConfig, ParamDef, apply_norm, \
     map_defs, norm_defs
 from repro_torch.models.ffn import ffn_apply, ffn_defs
 from repro_torch.models.moe import moe_apply, moe_defs
+from repro_torch.models.rwkv import rwkv6_channel_mix, rwkv6_defs, \
+    rwkv6_time_mix, rwkv_dims
 from repro_torch.models.ssm import mamba2_apply, mamba2_decode, mamba2_defs, \
     ssm_dims
 
@@ -49,10 +55,7 @@ def _require_ported(cfg: ArchConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet: ROADMAP A11")
-    if cfg.family == "ssm":
-        raise NotImplementedError(f"{cfg.name}: RWKV6 is not ported yet: "
-                                  f"ROADMAP B6")
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "ssm"):
         raise ValueError(f"unknown family {cfg.family}")
     if cfg.attention == "mla":
         raise NotImplementedError(f"{cfg.name}: MLA attention is not ported "
@@ -90,6 +93,10 @@ def model_defs(cfg: ArchConfig) -> dict:
                           "mamba": mamba2_defs(cfg, stacked_layers=L)}
         defs["shared_attn"] = {"norm": norm_defs(cfg, stacked=False),
                                "attn": gqa_defs(cfg, stacked_layers=0)}
+    elif cfg.family == "ssm":  # rwkv6 (the channel mix's cm_* in time_mix)
+        defs["layers"] = {"tm_norm": norm_defs(cfg),
+                          "time_mix": rwkv6_defs(cfg, stacked_layers=L),
+                          "cm_norm": norm_defs(cfg)}
     else:
         defs["layers"] = _decoder_layer_defs(cfg, L)
     defs["final_norm"] = norm_defs(cfg, stacked=False)
@@ -111,12 +118,24 @@ def cache_spec(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     their conv tails ``conv_x [L, batch, K-1, d_inner]`` and ``conv_bc
     [L, batch, K-1, 2N]``, and the shared attention's ``attn_k`` and
     ``attn_v [L / every, batch, max_seq, Kv, Dh]``, one slot per
-    application."""
+    application; for the ``ssm`` family the WKV ``state [L, batch, H, c,
+    c]`` declared float32 (a prefill leaves it in the compute type) and the
+    token-shift rows ``tm_last`` and ``cm_last [L, batch, d_model]``, whose
+    size does not grow with ``max_seq``."""
     _require_ported(cfg)
     dt = cfg.compute_dtype
     L = cfg.num_layers
     kv = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     kv_axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    if cfg.family == "ssm":
+        H, c = rwkv_dims(cfg)
+        last = ParamDef((L, batch, cfg.d_model), ("layers", "batch", "embed"),
+                        "zeros", dt)
+        return {"state": ParamDef((L, batch, H, c, c),
+                                  ("layers", "batch", "ssm_heads",
+                                   "head_dim", "head_dim"), "zeros",
+                                  torch.float32),
+                "tm_last": last, "cm_last": last}
     if cfg.family == "hybrid":
         s = cfg.ssm
         d_inner, H = ssm_dims(cfg)
@@ -209,6 +228,11 @@ def _stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; choose from {REMAT} "
                          f"or 'dots'")
+    if cfg.family == "ssm":
+        if remat != "none":
+            raise NotImplementedError("training the ssm family (remat) is "
+                                      "not ported yet: ROADMAP A11g")
+        return _rwkv_stack(cfg, params, x, caches=caches)
     if cfg.family == "hybrid":
         if remat != "none":
             raise NotImplementedError("training the hybrid family (remat) "
@@ -265,6 +289,45 @@ def _hybrid_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, angles,
     return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _rwkv_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
+                caches):
+    """rwkv6: per layer the time mix, then the channel mix (whose ``cm_*``
+    parameters live in ``time_mix``), each after its norm and added to the
+    residual. With ``caches`` a one-token x is a decode step and a longer
+    one a prefill: layer i reads and writes index i of ``state``,
+    ``tm_last`` and ``cm_last``, in place; where the new states' type
+    differs from the cache's (a bf16 prefill of the float32 zeros), the
+    ``state`` entry is replaced by one of the new type. Returns (hidden,
+    caches, aux = 0)."""
+    layers = _unstack(params["layers"], cfg.num_layers)
+    states = None
+    for index, lp in enumerate(layers):
+        tm_cache = cm_cache = None
+        if caches is not None:
+            tm_cache = {"state": caches["state"][index],
+                        "last_x": caches["tm_last"][index]}
+            cm_cache = {"last_x": caches["cm_last"][index]}
+        h = apply_norm(cfg, lp["tm_norm"], x)
+        a, new_tm = rwkv6_time_mix(cfg, lp["time_mix"], h, cache=tm_cache)
+        x = x + a.to(x.dtype)
+        h = apply_norm(cfg, lp["cm_norm"], x)
+        f, new_cm = rwkv6_channel_mix(cfg, lp["time_mix"], h, cache=cm_cache)
+        x = x + f.to(x.dtype)
+        if caches is None:
+            continue
+        if states is None:
+            old = caches["state"]
+            states = old if new_tm["state"].dtype == old.dtype else \
+                torch.empty(old.shape, dtype=new_tm["state"].dtype,
+                            device=old.device)
+        states[index] = new_tm["state"]
+        caches["tm_last"][index] = new_tm["last_x"]
+        caches["cm_last"][index] = new_cm["last_x"]
+    if caches is not None:
+        caches["state"] = states
+    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg, params["final_norm"], x)
     head = params["embed"]["tok"].T if cfg.tie_embeddings \
@@ -272,7 +335,10 @@ def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, head)
 
 
-def _angles(cfg: ArchConfig, positions) -> torch.Tensor:
+def _angles(cfg: ArchConfig, positions) -> Optional[torch.Tensor]:
+    """The rotary angles, or None for a family without attention."""
+    if cfg.family == "ssm" or cfg.attention == "none":
+        return None
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
                        cfg.mrope_sections)
 

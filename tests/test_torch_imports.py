@@ -87,6 +87,18 @@ def test_the_hybrid_serving_slice_is_covered():
     assert (PORT / "kernels" / "csrc" / "ssd_scan.cu").exists()
 
 
+def test_the_rwkv_slice_is_covered():
+    """The import checks below walk the RWKV6 slice's modules and the
+    ``wkv6_scan`` kernel too."""
+    mods = _port_modules()
+    for name in ("repro_torch.models.rwkv", "repro_torch.kernels.wkv6_scan",
+                 "repro_torch.configs.rwkv6_3b",
+                 "repro_torch.models.transformer", "repro_torch.kernels.ops",
+                 "repro_torch.launch.serve"):
+        assert name in mods, name
+    assert (PORT / "kernels" / "csrc" / "wkv6_scan.cu").exists()
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
@@ -146,6 +158,8 @@ else:
     raise AssertionError("serve without a card and without device= ran")
 assert serve(cfg, [[1] * 128], 2, device="cpu").tokens.shape == (1, 2)
 assert serve(get_smoke_config("deepseek-moe-16b"), [[1] * 128], 2,
+             device="cpu").tokens.shape == (1, 2)
+assert serve(get_smoke_config("rwkv6-3b"), [[1] * 64], 2,
              device="cpu").tokens.shape == (1, 2)
 from repro_torch.launch.train import main as train_main
 try:

@@ -177,11 +177,11 @@ def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
     """Every kernel builds from ``csrc``; a library's name hashes its source
     and every header it includes, so an edited shared header
     (``ddpg_update.cuh``) gives both learner kernels new names, never a
-    stale build, and leaves the flash-attention, gmm and ssd_scan kernels'
-    alone."""
+    stale build, and leaves the flash-attention, gmm, ssd_scan and
+    wkv6_scan kernels' alone."""
     learners = ["ddpg_learn", "episode_learn"]
     others = ["flash_attention_bwd", "flash_attention_fwd", "gmm",
-              "ssd_scan"]
+              "ssd_scan", "wkv6_scan"]
     assert build.sources() == learners + others
     for name in build.sources():
         target = build._target(name)

@@ -27,7 +27,12 @@ chain per output sums in the CPU library's order); ``ssd_scan`` y and
 state within 2e-6 relative in float32 (measured 6.6e-8 and 5.3e-9: the
 float64 cumsum rounds alike, the sums of products differ in order), y
 within one bf16 ulp of its largest value and the float32 state within 2e-6
-in bfloat16 (measured 0 and 1.1e-8).
+in bfloat16 (measured 0 and 1.1e-8); ``wkv6_scan`` y and state within
+2e-6 relative in float32 (measured 2.7e-7 and 2.1e-8, strong decay
+included: the cumsums agree bitwise, the sums of products differ in
+order), y within one bf16 ulp of its largest value and the float32 state
+within 2e-6 in bfloat16 (measured 1.1e-4 and 3.6e-8: a few elements of y
+round the other way).
 """
 
 import ctypes
@@ -57,6 +62,9 @@ from repro_torch.kernels.gmm import gmm_plain
 from repro_torch.kernels.ssd_scan import _bind as ssd_bind
 from repro_torch.kernels.ssd_scan import smem_plan as ssd_smem_plan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.kernels.wkv6_scan import _bind as wkv_bind
+from repro_torch.kernels.wkv6_scan import smem_plan as wkv_smem_plan
+from repro_torch.kernels.wkv6_scan import wkv6_scan_plain
 
 STUB = r"""
 #pragma once
@@ -390,8 +398,41 @@ def test_ssd_scan_source_matches_plain(emulated, b, h, s, p, n, chunk,
             ssd_smem_plan(q, n, p)["total"]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,c,chunk,w0", [
+    (3, 60, 16, 20, 0.0),    # rwkv6's smoke head size, a chunk below 64
+    (2, 128, 64, 64, 0.0),   # rwkv6-3b's chunk and head size, two chunks
+    (2, 128, 64, 64, 5.0),   # strong decay: |cumsum| ~9,600 per chunk
+])
+def test_wkv6_scan_source_matches_plain(emulated, bh, s, c, chunk, w0,
+                                        dtype):
+    """Several chunks per row (the state carried between them), the rows
+    of a chunk in 4 x 4 score tiles; the launcher refuses a chunk that does
+    not divide S, and states the shared-memory plan."""
+    rng = np.random.default_rng(9)
+    r, k, v = (torch.tensor(rng.standard_normal((bh, s, c)) * 0.5,
+                            dtype=dtype) for _ in range(3))
+    logw = -torch.tensor(np.exp(np.clip(
+        rng.standard_normal((bh, s, c)) + w0, -8, 6)), dtype=torch.float32)
+    u = torch.tensor(rng.standard_normal((bh, c)) * 0.5, dtype=torch.float32)
+    want_y, want_state = wkv6_scan_plain(r, k, v, logw, u, chunk=chunk)
+    y = torch.empty_like(r)
+    state = torch.empty((bh, c, c))
+    lib = wkv_bind(emulated["wkv6_scan"])
+    ptrs = [t.data_ptr() for t in (r, k, v, logw, u, y, state)]
+    bf16 = int(dtype == torch.bfloat16)
+    assert lib.wkv6_scan_launch(*ptrs, bh, s, c, chunk, bf16, None) == 0
+    assert lib.wkv6_scan_launch(*ptrs, bh, s, c, 7, bf16, None) == -1
+    assert _rel(state, want_state) <= 2e-6
+    assert _rel(y, want_y) <= (2e-6 if dtype == torch.float32
+                               else 2.0 ** -7)
+    for q in (1, 20, 24, 61, 64):
+        assert lib.wkv6_scan_smem_bytes(q, c) == \
+            wkv_smem_plan(q, c)["total"]
+
+
 def test_the_emulation_covers_every_source():
     assert build.sources() == ["ddpg_learn", "episode_learn",
                                "flash_attention_bwd", "flash_attention_fwd",
-                               "gmm", "ssd_scan"]
+                               "gmm", "ssd_scan", "wkv6_scan"]
     assert pathlib.Path(build.CSRC / "ddpg_update.cuh").exists()

@@ -179,8 +179,8 @@ def test_deepseek_moe_16b_is_the_published_size():
 
 
 @pytest.mark.parametrize("name,row", [
-    ("rwkv6-3b", "B6"), ("minicpm3-4b", "A11"),
-    ("whisper-large-v3", "A11"), ("qwen2-vl-72b", "A11")])
+    ("minicpm3-4b", "A11"), ("whisper-large-v3", "A11"),
+    ("qwen2-vl-72b", "A11")])
 def test_unported_architectures_name_their_roadmap_row(name, row):
     for get in (configs.get_config, configs.get_smoke_config):
         with pytest.raises(NotImplementedError, match=row):
@@ -191,7 +191,6 @@ def test_unported_architectures_name_their_roadmap_row(name, row):
 
 @pytest.mark.parametrize("change,row", [
     ({"attention": "mla", "mla": MLAConfig()}, "A11"),
-    ({"family": "ssm"}, "B6"),
     ({"encoder_layers": 2}, "A11")])
 def test_unported_branches_name_their_roadmap_row(change, row):
     cfg = dataclasses.replace(configs.get_smoke_config("yi-9b"), **change)
@@ -222,6 +221,31 @@ def test_the_hybrid_family_is_ported(case):
     assert set(cache) == {"state", "conv_x", "conv_bc", "attn_k", "attn_v"}
     assert cache["state"].dtype == torch.float32
     assert cache["attn_k"].shape[0] == cfg.num_layers // 2
+
+
+@pytest.mark.parametrize("case", ["arch", "branch"])
+def test_the_rwkv_family_is_ported(case):
+    """rwkv6-3b's configs load, and the ``ssm`` branch builds its defs and
+    cache (a dense config turned ``ssm``: time mix with the channel mix's
+    ``cm_*`` inside it, a float32 WKV state and the token-shift rows)."""
+    if case == "arch":
+        for get in (configs.get_config, configs.get_smoke_config):
+            assert get("rwkv6-3b").family == "ssm"
+        assert "rwkv6-3b" in configs.ARCH_NAMES
+        assert "rwkv6-3b" not in configs.NOT_PORTED
+        return
+    cfg = dataclasses.replace(configs.get_smoke_config("yi-9b"),
+                              family="ssm", attention="none",
+                              rwkv_head_size=16)
+    defs = tt.model_defs(cfg)
+    assert set(defs) == {"embed", "layers", "final_norm", "lm_head"}
+    assert set(defs["layers"]) == {"tm_norm", "time_mix", "cm_norm"}
+    assert {"cm_wk", "cm_wv", "cm_wr", "u", "w_lora_a"} <= \
+        set(defs["layers"]["time_mix"])
+    cache = tt.make_cache(cfg, 1, 8, device="cpu")
+    assert set(cache) == {"state", "tm_last", "cm_last"}
+    assert cache["state"].dtype == torch.float32
+    assert cache["state"].shape == (cfg.num_layers, 1, 4, 16, 16)
 
 
 def test_init_params_follows_the_reference_scale_rule():
