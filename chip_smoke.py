@@ -10,6 +10,11 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   power limit;
   2. build        every CUDA source of ``src/repro_torch/kernels/csrc``
                   compiled (one ``nvcc`` per source, all started together);
+                  the tensor-core ``gmm`` kernel read from its library
+                  by ``cuobjdump``: registers, stack and local bytes (held:
+                  0, so no spills) and the count of ``HGMMA`` instructions
+                  (held: not 0), beside its ``ptxas`` line where this run
+                  compiled it;
   3. check        the ``ddpg_learn`` kernel against its plain PyTorch version
                   at N = 1 and N = 1024 sessions on the 2-D and 8-D spaces,
                   from independent ``ddpg_init`` states and minibatches
@@ -94,10 +99,13 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   and through their plain versions (reported, not held:
                   random weights at this depth amplify rounding);
  11. check_gmm    the ``gmm`` kernel against its plain version on the same
-                  numpy inputs: bfloat16 at deepseek-moe-16b's two serving
-                  products (E 64, C 1920, D 2048 -> F 1408 and D 1408 -> F
-                  2048), float32 at E 4, C 256, D 640, F 384; held within
-                  ``GMM_*`` below, two launches bitwise equal;
+                  numpy inputs: bfloat16 (the tensor-core kernel) at
+                  deepseek-moe-16b's two serving products (E 64, C 1920, D
+                  2048 -> F 1408 and D 1408 -> F 2048), float32 (the
+                  CUDA-core kernel) at E 4, C 256, D 640, F 384, and
+                  bfloat16 at E 3, C 192, D 160, F 192 (its 128 x 128 x 64
+                  tiles run past C, F and D); held within ``GMM_*`` below,
+                  two launches bitwise equal;
  12. serve_moe    the MoE serving path, ``repro_torch.launch.serve.serve`` on
                   deepseek-moe-16b at its published size in bfloat16 (random
                   weights from a seeded ``torch.Generator`` on the card): 4
@@ -165,10 +173,12 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   ``scaled_dot_product_attention`` on the same tensors, the
                   flash forward, dq and dk/dv at the training shape beside
                   SDPA's forward and backward, ``gmm`` at the two MoE
-                  serving shapes beside ``torch.bmm``, ``ssd_scan`` at
-                  zamba2-7b's serving shape and ``wkv6_scan`` at rwkv6-3b's
-                  forward shape (no PyTorch call computes either scan);
-                  each beside the bound from the shapes.
+                  serving shapes beside ``torch.bmm`` (with its TFLOP/s,
+                  its share of the bound and its ratio to ``torch.bmm``),
+                  ``ssd_scan`` at zamba2-7b's serving shape and
+                  ``wkv6_scan`` at rwkv6-3b's forward shape (no PyTorch
+                  call computes either scan); each beside the bound from
+                  the shapes.
 
 Then the whole run's seconds, the ``{"kernels": [...]}`` line,
 ``nvidia-smi``'s line, and last
@@ -317,11 +327,13 @@ GMM_F32_RTOL = 1e-5
 GMM_BF16_RTOL = 2.0 ** -7
 GMM_BF16_OFF_SHARE = 1e-3
 #: (dtype, (E, C, D, F)): deepseek-moe-16b's two serving products at 4 x
-#: 4096 tokens (gate / up, then down) in bf16, then a small float32 shape
-#: whose D is a multiple of 128 but not of 512
+#: 4096 tokens (gate / up, then down) in bf16, a small float32 shape whose
+#: D is a multiple of 128 but not of 512, then a bf16 shape whose tiles of
+#: 128 x 128 x 64 run past C, F and D
 GMM_CASES = (("bfloat16", (64, 1920, 2048, 1408)),
              ("bfloat16", (64, 1920, 1408, 2048)),
-             ("float32", (4, 256, 640, 384)))
+             ("float32", (4, 256, 640, 384)),
+             ("bfloat16", (3, 192, 160, 192)))
 #: the MoE serving requests: (batch, prompt tokens, generated tokens). At
 #: 4 x 4096 the expert capacity C is 1,920, a multiple of 128: the experts
 #: run through gmm (3 launches per layer); at 4 x 512 C is 240 and they
@@ -392,6 +404,53 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def gmm_tc_build(log: dict) -> dict:
+    """The tensor-core ``gmm`` kernel as built, read from its library in
+    every run by ``cuobjdump``: its registers and its stack and local
+    bytes (``-res-usage``; a spill would show there) and the count of
+    ``HGMMA`` instructions in its SASS; beside them its ``ptxas`` lines
+    where this run compiled it (None where the library was built before).
+    Raises unless the kernel is found with no stack or local bytes and at
+    least one ``HGMMA``."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = str(build._target("gmm"))
+
+    def dump(flag: str) -> str:
+        return subprocess.run([tool, flag, lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+
+    usage = None
+    lines = dump("-res-usage").splitlines()
+    for head, body in zip(lines, lines[1:]):
+        if head.strip().startswith("Function") and "gmm_tc_kernel" in head:
+            usage = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", body)}
+    if usage is None:
+        raise AssertionError(f"cuobjdump -res-usage finds no gmm_tc_kernel "
+                             f"in {lib}")
+    ptxas = None
+    text = log.get("gmm", {}).get("ptxas", "")
+    for entry in text.split("Compiling entry function")[1:]:
+        if "gmm_tc_kernel" in entry.splitlines()[0]:
+            ptxas = [ln.strip() for ln in entry.splitlines()
+                     if "spill" in ln or "registers" in ln]
+    facts = {"registers": usage.get("REG"),
+             "local_bytes": usage.get("STACK", 0) + usage.get("LOCAL", 0),
+             "hgmma": sum("HGMMA" in ln for ln in dump("-sass").splitlines()),
+             "ptxas": ptxas}
+    if facts["local_bytes"]:
+        raise AssertionError(f"gmm_tc_kernel uses stack or local memory "
+                             f"(spills): {usage}")
+    if facts["hgmma"] == 0:
+        raise AssertionError("gmm's library has no HGMMA instruction: the "
+                             "bf16 products are not on the tensor cores")
+    return facts
 
 
 # ---------------------------------------------------------------------------
@@ -1751,7 +1810,7 @@ def phase_timing_gmm(smi: str) -> list:
     for dtype, shape in GMM_CASES[:2]:
         x, w = gmm_inputs(shape, dtype, seed=950)
         before = gmm.launches
-        kernel_ms = time_ms(lambda: gmm(x, w), 5, warmup=1)
+        kernel_ms = time_ms(lambda: gmm(x, w), 20)
         gmm.launches = before  # timing launches are not counted
         plain_ms = time_ms(lambda: gmm_plain(x, w), 5, warmup=1)
         library_ms = time_ms(lambda: torch.bmm(x, w), 20)
@@ -1767,7 +1826,8 @@ def phase_timing_gmm(smi: str) -> list:
                "bound_f32_cuda_cores_ms": wk["flops"] / PEAK_F32_FLOPS * 1e3,
                "flops": wk["flops"], "bytes": wk["bytes"],
                "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
-               "tflops": wk["flops"] / kernel_ms / 1e9, "card": smi}
+               "tflops": wk["flops"] / kernel_ms / 1e9,
+               "vs_library": kernel_ms / library_ms, "card": smi}
         emit(row)
         rows.append(row)
         del x, w
@@ -2839,8 +2899,10 @@ def main() -> int:
     log = build.build_all()
     for name, entry in log.items():
         print(f"[{name}] nvcc -Xptxas -v:\n{entry['ptxas']}", file=sys.stderr)
+    gmm_build = gmm_tc_build(log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_seconds": {k: v["seconds"] for k, v in log.items()}})
+          "per_source_seconds": {k: v["seconds"] for k, v in log.items()},
+          "gmm_tc_kernel": gmm_build})
 
     if sys.argv[1:] == ["--drift"]:
         phase_drift()
@@ -2983,9 +3045,14 @@ def main() -> int:
         "library_ms": gmm_rows[0]["library_ms"],
         "library_call": gmm_rows[0]["library_call"],
         "shape_ECDF": gmm_rows[0]["shape_ECDF"], "dtype": "bfloat16",
+        "tflops": gmm_rows[0]["tflops"],
+        "bound_share": gmm_rows[0]["bound_share"],
+        "vs_library": gmm_rows[0]["vs_library"],
+        "tc_kernel": gmm_build,
         "at_down_shape": {key: gmm_rows[1][key] for key in (
             "shape_ECDF", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}, "ok": True}, {
+            "library_ms", "tflops", "bound_share", "vs_library")},
+        "ok": True}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/mamba2_scan.py:69",

@@ -6,44 +6,92 @@
 // computes: x [E, C, D] and w [E, D, F] upcast to float32, a float32
 // accumulator over the contraction dim D, the result cast once to x's type
 // (bfloat16 rounds to nearest even). The TPU kernel blocks D in 512s and
-// asserts D % 512 == 0 once D > 512; this kernel takes any D that is a
+// asserts D % 512 == 0 once D > 512; this source takes any D that is a
 // multiple of 32, so deepseek-moe-16b's down product (D = 1,408) runs.
 //
 // Layout: x [E, C, D], w [E, D, F], out [E, C, F], contiguous, all of one
-// type (float or bfloat16).
+// type. Which dtype takes which kernel:
+//   bfloat16 -> gmm_tc_kernel: tensor cores (wgmma), tiles staged by TMA.
+//               This is what serving runs.
+//   float32  -> gmm_kernel: float32 FMAs on the CUDA cores. A tensor-core
+//               float32 product would be TF32, which the port never uses.
 //
 // What bounds it. One launch at deepseek-moe-16b's serving shapes (E 64, C
 // 1,920, D 2,048 -> F 1,408 and D 1,408 -> F 2,048) is 2 E C D F = 7.09e11
 // operations on 1.22 GB of bf16 operands and output: against the card's
-// bf16 tensor rate (989 TFLOP/s) and 3.35 TB/s it is bound by the operations
-// (0.72 ms against 0.36 ms of bytes). This kernel does its products with
-// float32 FMAs on the CUDA cores (67 TFLOP/s: 10.6 ms), a 15x lower ceiling
-// (kernels/gmm.py::work counts both). The products of two bf16 values are
-// exact in float32, so moving them onto the tensor cores changes only the
-// order of the sums.
+// bf16 tensor rate (989 TFLOP/s) and 3.35 TB/s it is bound by the
+// operations (0.72 ms against 0.36 ms of bytes; kernels/gmm.py::work). The
+// product of two bf16 values is exact in float32, so the tensor cores
+// change only the order of the float32 sums.
 //
-// Design (simple and right first). One thread block of 256 threads per
-// (expert, 64 rows of C, 64 columns of F), the F tiles of one row tile and
-// the row tiles of one expert adjacent in launch order so that an expert's
-// x and w stay in L2 while its blocks run. The contraction is a loop inside
-// the block over chunks of 32 of D (on the TPU a sequential grid axis): the
-// x chunk is staged transposed ([d][row], rows padded to 68 so that the
-// transposing stores of a warp hit 32 banks) and the w chunk row major, both
-// as float32 in dynamic shared memory, beside the float32 accumulator tile
-// (33,280 B in all). Each thread owns 4 x 4 outputs per iteration: it reads
-// its accumulator from shared memory, adds the chunk's 32 products in order
-// with FMAs (16 per two 16-byte loads) and writes it back, so the sum over D
-// is one sequential FMA chain per output, bitwise repeatable. Every phase is
-// a loop strided by blockDim.x whose iterations write disjoint elements,
+// bfloat16 design (gmm_tc_kernel). One block of 288 threads per (expert,
+// 128 rows of C, 128 columns of F), the F tiles of one row tile and the row
+// tiles of one expert adjacent in launch order so that an expert's x and w
+// stay in L2 while its blocks run. Not persistent, no split-K, no atomics:
+// each output is summed by one block in one order, so two launches agree
+// bitwise.
+//   - TMA. Three-dimensional tensor maps over x {D, C, E} and w {F, D, E}
+//     (innermost first), so a box that runs past an expert's C, D or F is
+//     zero-filled inside that expert and never reads the next expert. Each
+//     box row is 128 bytes (64 bf16) in the 128-byte swizzle: x comes as a
+//     box of 128 rows x 64 depths, w as two boxes of 64 depths x 64
+//     columns. The maps are encoded on the host per call by
+//     cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (no
+//     -lcuda), and passed as __grid_constant__ parameters.
+//   - A ring of kStages stages (32 KiB each: the x tile, then the two w
+//     boxes), each with a "full" and an "empty" mbarrier. Warp 8, the
+//     producer, waits for a stage to be empty, arms its full barrier with
+//     the stage's bytes and issues the three loads of one 64-deep K step.
+//   - Warps 0-3 and 4-7 are two consumer warpgroups, 64 rows x 128 columns
+//     each. Per K step a warpgroup waits for "full", issues four
+//     wgmma.mma_async m64n128k16 (f32 += bf16 x bf16) reading both
+//     operands from shared memory through descriptors, commits them as one
+//     group, waits until only that group is in flight, and then releases
+//     the previous step's stage (one arrive per warp on "empty"). x is
+//     K-major; w [D, F] with F contiguous is MN-major for B and goes in
+//     through the transpose-B bit, with no transposed copy. The 64
+//     accumulators a thread holds stay in registers.
+//   - Epilogue: each thread converts its accumulators to bf16 in the wgmma
+//     fragment layout and stores them as pairs; rows >= C and columns >= F
+//     of an edge tile are masked.
+// Shared memory per block: gmm_smem_bytes (= kernels/gmm.py::smem_plan).
+//
+// float32 design (gmm_kernel). One block of 256 threads per (expert, 64
+// rows, 64 columns); chunks of 32 of D staged as float32 in shared memory
+// beside a float32 accumulator tile, one FMA chain per output. Every phase
+// is a loop strided by blockDim.x whose iterations write disjoint elements,
 // separated by __syncthreads(), so one thread per block computes the same
-// (the CPU emulation in the tests runs it so). Not yet: mma/wgmma
-// tensor-core products, TMA or cp.async staging, bf16 tiles, overlapping a
-// chunk's load with the previous chunk's math.
+// (the CPU emulation in the tests runs it so).
+//
+// Without nvcc (the CPU emulation in the tests), the bfloat16 launcher runs
+// a host model of the tensor-core kernel instead: the same blocks, K steps,
+// stage offsets, box coordinates, descriptors and epilogue, with TMA's
+// zero fill and 128-byte swizzle written out, and each wgmma read through
+// its descriptors as the tensor cores address the swizzled layouts. It
+// cannot show the PTX, the barriers, the fragment layout or the tensor
+// cores' own order of sums; the card's checks do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#ifdef __CUDACC__
+#include <cuda.h>
+#else
+#include <algorithm>
+#include <cstring>
+#include <vector>
+#endif
+
 namespace {
+
+struct Dims {
+  int E, C, D, F;
+};
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
 
 constexpr int kThreads = 256;
 constexpr int kBlockC = 64;   // rows of C per block
@@ -51,29 +99,9 @@ constexpr int kBlockF = 64;   // columns of F per block
 constexpr int kChunk = 32;    // depth of D staged per iteration
 constexpr int kLdX = kBlockC + 4;  // row stride of the transposed x chunk
 
-struct Dims {
-  int E, C, D, F;
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           T* __restrict__ out, Dims P) {
+gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+           float* __restrict__ out, Dims P) {
   extern __shared__ float smem[];
   float* xT = smem;                   // [kChunk][kLdX]  x chunk, transposed
   float* ws = xT + kChunk * kLdX;     // [kChunk][kBlockF] w chunk
@@ -84,8 +112,8 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int ci = (blockIdx.x / nf) % nc;
   const int e = blockIdx.x / (nf * nc);
   const int c0 = ci * kBlockC, f0 = fi * kBlockF;
-  const T* xe = x + ((size_t)e * P.C + c0) * P.D;   // row c0 of expert e
-  const T* we = w + (size_t)e * P.D * P.F + f0;     // column f0 of expert e
+  const float* xe = x + ((size_t)e * P.C + c0) * P.D;   // row c0 of expert e
+  const float* we = w + (size_t)e * P.D * P.F + f0;     // column f0 of e
 
   for (int i = threadIdx.x; i < kBlockC * kBlockF; i += blockDim.x)
     acc[i] = 0.f;
@@ -98,11 +126,11 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int lane = i & 31, rest = i >> 5;
       const int r = (rest % (kBlockC / 4)) * 4 + (lane & 3);
       const int d = (rest / (kBlockC / 4)) * 8 + (lane >> 2);
-      xT[d * kLdX + r] = to_f32(xe[(size_t)r * P.D + d0 + d]);
+      xT[d * kLdX + r] = xe[(size_t)r * P.D + d0 + d];
     }
     for (int i = threadIdx.x; i < kChunk * kBlockF; i += blockDim.x) {
       const int d = i / kBlockF, c = i % kBlockF;
-      ws[i] = to_f32(we[(size_t)(d0 + d) * P.F + c]);
+      ws[i] = we[(size_t)(d0 + d) * P.F + c];
     }
     __syncthreads();
 
@@ -140,38 +168,522 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   __syncthreads();
 
-  T* oe = out + ((size_t)e * P.C + c0) * P.F + f0;
+  float* oe = out + ((size_t)e * P.C + c0) * P.F + f0;
   for (int i = threadIdx.x; i < kBlockC * kBlockF; i += blockDim.x)
-    oe[(size_t)(i / kBlockF) * P.F + i % kBlockF] = from_f32<T>(acc[i]);
+    oe[(size_t)(i / kBlockF) * P.F + i % kBlockF] = acc[i];
 }
 
 constexpr int smem_floats() {
   return kChunk * kLdX + kChunk * kBlockF + kBlockC * kBlockF;
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* o, const Dims& P,
-           void* stream) {
+int launch_f32(const void* x, const void* w, void* o, const Dims& P,
+               void* stream) {
   const int n = P.E * (P.C / kBlockC) * (P.F / kBlockF);
   const int smem = (int)(smem_floats() * sizeof(float));
   const cudaError_t err = cudaFuncSetAttribute(
-      gmm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  gmm_kernel<T><<<n, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(o),
-      P);
+  gmm_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(o), P);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores. What follows up to the CUDA-only part is shared by
+// the kernel and the host model.
+
+constexpr int kTcM = 128;             // rows of C per block
+constexpr int kTcN = 128;             // columns of F per block
+constexpr int kTcK = 64;              // depth of one K step: 128 bytes
+constexpr int kWgRows = 64;           // rows per consumer warpgroup
+constexpr int kConsumers = kTcM / kWgRows;           // warpgroups
+constexpr int kTcThreads = kConsumers * 128 + 32;    // + the producer warp
+constexpr int kBoxN = 64;             // columns of one w box: 128 bytes
+constexpr int kRowBytes = 128;        // one box row, the swizzle's span
+constexpr int kXTileBytes = kTcM * kRowBytes;        // 16 KiB
+constexpr int kWBoxBytes = kTcK * kRowBytes;         // 8 KiB
+constexpr int kStageBytes = kXTileBytes + (kTcN / kBoxN) * kWBoxBytes;
+constexpr int kStages = 4;
+constexpr int kSwizzleAtom = 1024;    // 8 rows of 128 bytes
+constexpr int kMmaK = 16;             // depth of one wgmma
+
+// Bytes of dynamic shared memory a block asks for: slack to align the ring
+// to the swizzle atom, the stages, a full and an empty mbarrier per stage.
+__host__ __device__ constexpr int tc_smem_bytes(int stages) {
+  return kSwizzleAtom + stages * kStageBytes + stages * 2 * 8;
+}
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A shared-memory matrix descriptor for the 128-byte swizzle: start address,
+// leading and stride byte offsets (in 16-byte units), layout type 1.
+__host__ __device__ inline std::uint64_t sw128_desc(std::uint32_t addr,
+                                                    std::uint32_t lbo,
+                                                    std::uint32_t sbo) {
+  return (std::uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((std::uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((std::uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+// The descriptors of K-slice kk (16 deep) of a stage, for warpgroup wg.
+// A, K-major: rows of 128 bytes, 8-row groups 1,024 bytes apart (SBO); a
+// slice starts 32 bytes further along the row. B, MN-major: depth rows of
+// 128 bytes (64 columns), 8-row groups 1,024 apart (SBO), the second
+// 64-column box kWBoxBytes further (LBO); a slice starts 16 rows further.
+__host__ __device__ inline std::uint64_t a_desc(std::uint32_t stage, int wg,
+                                                int kk) {
+  return sw128_desc(stage + wg * kWgRows * kRowBytes + kk * kMmaK * 2,
+                    16, 8 * kRowBytes);
+}
+__host__ __device__ inline std::uint64_t b_desc(std::uint32_t stage, int kk) {
+  return sw128_desc(stage + kXTileBytes + kk * kMmaK * kRowBytes,
+                    kWBoxBytes, 8 * kRowBytes);
+}
+
+// The loads of K step kt into a stage: copy(map, smem address, c0, c1, c2)
+// with map 0 = x {D, C, E}, 1 = w {F, D, E} and coordinates innermost first.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Copy>
+__host__ __device__ inline void stage_loads(const Copy& copy,
+                                            std::uint32_t stage, int kt,
+                                            int c0, int f0, int e) {
+  copy(0, stage, kt * kTcK, c0, e);
+#pragma unroll
+  for (int j = 0; j < kTcN / kBoxN; ++j)
+    copy(1, stage + kXTileBytes + j * kWBoxBytes, f0 + j * kBoxN, kt * kTcK,
+         e);
+}
+
+// The products of one stage for warpgroup wg: mma(A descriptor, B
+// descriptor), one m64n128k16 each.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Mma>
+__host__ __device__ inline void stage_mmas(const Mma& mma,
+                                           std::uint32_t stage, int wg) {
+#pragma unroll
+  for (int kk = 0; kk < kTcK / kMmaK; ++kk)
+    mma(a_desc(stage, wg, kk), b_desc(stage, kk));
+}
+
+// The wgmma accumulator fragment (m64nN, f32): thread t of the warpgroup
+// holds, in register i, row frag_row(t, i) and column frag_col(t, i).
+__host__ __device__ constexpr int frag_row(int t, int i) {
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
+}
+__host__ __device__ constexpr int frag_col(int t, int i) {
+  return 8 * (i / 4) + 2 * (t % 4) + i % 2;
+}
+
+__host__ __device__ inline void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+#ifdef __CUDACC__
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+#else
+  p[0] = __float2bfloat16_rn(a);
+  p[1] = __float2bfloat16_rn(b);
+#endif
+}
+
+// Thread t's accumulators to out as bf16 pairs, for the warpgroup's rows
+// row0.. and the block's columns col0..; rows >= C and columns >= F masked.
+__host__ __device__ inline void store_fragment(__nv_bfloat16* out,
+                                               const Dims& P, int e, int row0,
+                                               int col0, int t,
+                                               const float (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int row = row0 + frag_row(t, i), col = col0 + frag_col(t, i);
+    if (row < P.C && col < P.F)
+      store_pair(out + ((size_t)e * P.C + row) * P.F + col, acc[i],
+                 acc[i + 1]);
+  }
+}
+
+// A tensor map's shape: dims and byte strides innermost first, the box.
+struct MapSpec {
+  std::uint64_t dims[3];
+  std::uint64_t strides[2];
+  std::uint32_t box[3];
+};
+
+MapSpec map_spec(int map, const Dims& P) {
+  if (map == 0)
+    return {{(std::uint64_t)P.D, (std::uint64_t)P.C, (std::uint64_t)P.E},
+            {(std::uint64_t)P.D * 2, (std::uint64_t)P.C * P.D * 2},
+            {(std::uint32_t)kTcK, (std::uint32_t)kTcM, 1}};
+  return {{(std::uint64_t)P.F, (std::uint64_t)P.D, (std::uint64_t)P.E},
+          {(std::uint64_t)P.F * 2, (std::uint64_t)P.D * P.F * 2},
+          {(std::uint32_t)kBoxN, (std::uint32_t)kTcK, 1}};
+}
+
+#ifdef __CUDACC__
+
+__device__ __forceinline__ std::uint32_t smem_u32(const void* p) {
+  return (std::uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(std::uint32_t bar,
+                                          std::uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(std::uint32_t bar,
+                                          std::uint32_t parity) {
+  std::uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(std::uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(std::uint32_t bar,
+                                                      std::uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(std::uint32_t dst,
+                                            std::uint64_t map,
+                                            std::uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 std::uint64_t da,
+                                                 std::uint64_t db) {
+  // scale-d 1 (accumulate), scale-a 1, scale-b 1, A K-major (0), B
+  // MN-major (transpose-B 1)
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+gmm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap wmap,
+              __nv_bfloat16* __restrict__ out, Dims P) {
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  // the ring, aligned to the swizzle atom; then the barriers
+  const std::uint32_t ring = (smem_u32(tc_smem) + kSwizzleAtom - 1) &
+                             ~(std::uint32_t)(kSwizzleAtom - 1);
+  const std::uint32_t full = ring + kStages * kStageBytes;
+  const std::uint32_t empty = full + kStages * 8;
+
+  const int nf = cdiv(P.F, kTcN), nc = cdiv(P.C, kTcM);
+  const int fi = blockIdx.x % nf;
+  const int ci = (blockIdx.x / nf) % nc;
+  const int e = blockIdx.x / (nf * nc);
+  const int c0 = ci * kTcM, f0 = fi * kTcN;
+  const int nk = cdiv(P.D, kTcK);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);                    // the producer's arm
+      mbar_init(empty + 8 * s, kConsumers * 4);      // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {
+    // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      const std::uint64_t maps[2] = {reinterpret_cast<std::uint64_t>(&xmap),
+                                     reinterpret_cast<std::uint64_t>(&wmap)};
+      asm volatile("prefetch.tensormap [%0];" ::"l"(maps[0]) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(maps[1]) : "memory");
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        const std::uint32_t bar = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(bar, kStageBytes);
+        stage_loads(
+            [&](int map, std::uint32_t dst, int x0, int x1, int x2) {
+              tma_load_3d(dst, maps[map], bar, x0, x1, x2);
+            },
+            ring + s * kStageBytes, kt, c0, f0, e);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 rows x 128 columns
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(full + 8 * s, (kt / kStages) & 1);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    stage_mmas([&](std::uint64_t da,
+                   std::uint64_t db) { wgmma_m64n128k16(acc, da, db); },
+               ring + s * kStageBytes, wg);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the previous step's products are done: release its stage
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(acc);
+    if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % kStages));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc);
+  store_fragment(out, P, e, c0 + wg * kWgRows, f0, t, acc);
+}
+
+// cuTensorMapEncodeTiled, from the CUDA driver API through the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// 0, or -2 where cuTensorMapEncodeTiled refuses the map (a pointer not
+// 16-byte aligned)
+int encode_map(CUtensorMap* m, const MapSpec& s, const void* base) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {s.dims[0], s.dims[1], s.dims[2]};
+  const cuuint64_t strides[2] = {s.strides[0], s.strides[1]};
+  const cuuint32_t box[3] = {s.box[0], s.box[1], s.box[2]};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+int launch_tc(const void* x, const void* w, void* o, const Dims& P,
+              void* stream) {
+  CUtensorMap xmap, wmap;
+  int err = encode_map(&xmap, map_spec(0, P), x);
+  if (err == 0) err = encode_map(&wmap, map_spec(1, P), w);
+  if (err != 0) return err;
+  const int n = P.E * cdiv(P.C, kTcM) * cdiv(P.F, kTcN);
+  const int smem = tc_smem_bytes(kStages);
+  const cudaError_t e = cudaFuncSetAttribute(
+      gmm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  gmm_tc_kernel<<<n, kTcThreads, smem, (cudaStream_t)stream>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(o), P);
+  return (int)cudaGetLastError();
+}
+
+#else  // the host model of gmm_tc_kernel
+
+// The 128-byte swizzle on a shared-memory byte address: its 16-byte chunk
+// (bits 4-6) XOR its 128-byte row within the 1,024-byte atom (bits 7-9).
+inline std::uint32_t swizzle128(std::uint32_t a) {
+  return a ^ (((a >> 7) & 7u) << 4);
+}
+
+struct Model {
+  std::vector<unsigned char> smem;  // address 0 is the ring's aligned start
+  bool ok = true;
+
+  float at(std::uint32_t addr) {
+    addr = swizzle128(addr);
+    if (addr + 2 > smem.size()) {
+      ok = false;
+      return 0.f;
+    }
+    __nv_bfloat16 h;
+    std::memcpy(&h, &smem[addr], 2);
+    return __bfloat162float(h);
+  }
+
+  // a TMA box load: zero outside the tensor on every axis, the box's rows
+  // of 128 bytes laid at dst on, swizzled
+  void copy(const MapSpec& m, const void* src, std::uint32_t dst, int c0,
+            int c1, int c2) {
+    const unsigned char* g = static_cast<const unsigned char*>(src);
+    for (std::uint32_t i2 = 0; i2 < m.box[2]; ++i2)
+      for (std::uint32_t i1 = 0; i1 < m.box[1]; ++i1)
+        for (std::uint32_t i0 = 0; i0 < m.box[0]; ++i0) {
+          const std::uint64_t g0 = c0 + i0, g1 = c1 + i1, g2 = c2 + i2;
+          unsigned char v[2] = {0, 0};
+          if (g0 < m.dims[0] && g1 < m.dims[1] && g2 < m.dims[2])
+            std::memcpy(v, g + g0 * 2 + g1 * m.strides[0] + g2 * m.strides[1],
+                        2);
+          const std::uint32_t a =
+              swizzle128(dst + ((i2 * m.box[1] + i1) * m.box[0] + i0) * 2);
+          if (a + 2 > smem.size()) {
+            ok = false;
+            continue;
+          }
+          std::memcpy(&smem[a], v, 2);
+        }
+  }
+
+  // one wgmma m64n128k16 with A K-major and B MN-major, both read through
+  // their descriptors as the tensor cores address the 128-byte-swizzled
+  // layouts: A(m, k) at start + (m / 8) SBO + (m % 8) 128 + 2 k, B(k, n) at
+  // start + (n / 64) LBO + (k / 8) SBO + (k % 8) 128 + 2 (n % 64)
+  void mma(std::uint64_t da, std::uint64_t db, float (*acc)[kTcN]) {
+    struct Desc {
+      std::uint32_t start, lbo, sbo, base, layout;
+    };
+    auto decode = [](std::uint64_t d) {
+      return Desc{(std::uint32_t)(d & 0x3FFF) << 4,
+                  (std::uint32_t)((d >> 16) & 0x3FFF) << 4,
+                  (std::uint32_t)((d >> 32) & 0x3FFF) << 4,
+                  (std::uint32_t)((d >> 49) & 7), (std::uint32_t)(d >> 62)};
+    };
+    const Desc a = decode(da), b = decode(db);
+    if (a.layout != 1 || b.layout != 1 || a.base != 0 || b.base != 0) {
+      ok = false;
+      return;
+    }
+    float A[kWgRows][kMmaK], B[kMmaK][kTcN];
+    for (int m = 0; m < kWgRows; ++m)
+      for (int k = 0; k < kMmaK; ++k)
+        A[m][k] = at(a.start + (m / 8) * a.sbo + (m % 8) * 128 + 2 * k);
+    for (int k = 0; k < kMmaK; ++k)
+      for (int n = 0; n < kTcN; ++n)
+        B[k][n] = at(b.start + (n / 64) * b.lbo + (k / 8) * b.sbo +
+                     (k % 8) * 128 + 2 * (n % 64));
+    for (int m = 0; m < kWgRows; ++m)
+      for (int n = 0; n < kTcN; ++n) {
+        float s = acc[m][n];
+        for (int k = 0; k < kMmaK; ++k) s += A[m][k] * B[k][n];
+        acc[m][n] = s;
+      }
+  }
+};
+
+int launch_tc(const void* x, const void* w, void* o, const Dims& P, void*) {
+  Model model;
+  model.smem.assign(tc_smem_bytes(kStages) - kSwizzleAtom, 0);
+  const MapSpec maps[2] = {map_spec(0, P), map_spec(1, P)};
+  const void* srcs[2] = {x, w};
+  const int nf = cdiv(P.F, kTcN), nc = cdiv(P.C, kTcM);
+  const int nk = cdiv(P.D, kTcK);
+  std::vector<float> tiles(kConsumers * kWgRows * kTcN);
+  for (int b = 0; b < P.E * nc * nf; ++b) {
+    const int fi = b % nf, ci = (b / nf) % nc, e = b / (nf * nc);
+    const int c0 = ci * kTcM, f0 = fi * kTcN;
+    std::fill(tiles.begin(), tiles.end(), 0.f);
+    for (int kt = 0; kt < nk; ++kt) {
+      const std::uint32_t stage = (kt % kStages) * kStageBytes;
+      stage_loads(
+          [&](int map, std::uint32_t dst, int x0, int x1, int x2) {
+            model.copy(maps[map], srcs[map], dst, x0, x1, x2);
+          },
+          stage, kt, c0, f0, e);
+      for (int wg = 0; wg < kConsumers; ++wg)
+        stage_mmas(
+            [&](std::uint64_t da, std::uint64_t db) {
+              model.mma(da, db, reinterpret_cast<float(*)[kTcN]>(
+                                    &tiles[wg * kWgRows * kTcN]));
+            },
+            stage, wg);
+    }
+    for (int wg = 0; wg < kConsumers; ++wg)
+      for (int t = 0; t < 128; ++t) {
+        float acc[64];
+        for (int i = 0; i < 64; ++i)
+          acc[i] = tiles[(wg * kWgRows + frag_row(t, i)) * kTcN +
+                         frag_col(t, i)];
+        store_fragment(static_cast<__nv_bfloat16*>(o), P, e,
+                       c0 + wg * kWgRows, f0, t, acc);
+      }
+  }
+  return model.ok ? 0 : -3;
+}
+
+#endif  // __CUDACC__
 
 }  // namespace
 
 extern "C" {
 
 // Launches out[e] = x[e] @ w[e] on `stream` and returns cudaGetLastError()
-// (0 when the launch was accepted), or -1 for dimensions the kernel does not
+// (0 when the launch was accepted), or -1 for dimensions the kernels do not
 // take (C or F not a positive multiple of 64, D not a positive multiple of
-// 32, E not positive, a grid over 2^31 - 1 blocks). x, w, o are device
-// pointers of float (bf16 = 0) or __nv_bfloat16 (bf16 = 1).
+// 32, E not positive, a grid over 2^31 - 1 blocks), or -2 where
+// cuTensorMapEncodeTiled refuses a tensor map (x or w not 16-byte
+// aligned). x, w, o are device pointers of float (bf16 = 0: the CUDA-core
+// kernel) or __nv_bfloat16 (bf16 = 1: the tensor-core kernel).
 int gmm_launch(const void* x, const void* w, void* o, int E, int C, int D,
                int F, int bf16, void* stream) {
   if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || C % kBlockC != 0 ||
@@ -179,8 +691,15 @@ int gmm_launch(const void* x, const void* w, void* o, int E, int C, int D,
       (long long)E * (C / kBlockC) * (F / kBlockF) > 2147483647LL)
     return -1;
   const Dims P{E, C, D, F};
-  return bf16 ? launch<__nv_bfloat16>(x, w, o, P, stream)
-              : launch<float>(x, w, o, P, stream);
+  return bf16 ? launch_tc(x, w, o, P, stream)
+              : launch_f32(x, w, o, P, stream);
 }
+
+// Bytes of dynamic shared memory one tensor-core block asks for with
+// `stages` stages (kernels/gmm.py::smem_plan states the same by part).
+int gmm_smem_bytes(int stages) { return tc_smem_bytes(stages); }
+
+// The stages the tensor-core kernel is built with.
+int gmm_stages() { return kStages; }
 
 }  // extern "C"

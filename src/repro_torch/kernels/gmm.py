@@ -1,19 +1,29 @@
-"""Grouped (per-expert) matrix product: the CUDA kernel's wrapper, its plain
-PyTorch version, and the work it does.
+"""Grouped (per-expert) matrix product: the CUDA kernels' wrapper, their
+plain PyTorch version, and the work they do.
 
-``gmm(x, w)`` launches ``csrc/gmm.cu`` (one thread block per expert, 64 rows
-of C and 64 columns of F, the contraction a loop inside the block; it
-replaces the Pallas TPU kernel ``src/repro/kernels/gmm.py:35 gmm`` of the
-JAX package). ``gmm_plain`` computes the same function with the TPU
-kernel's op order; it is what a CPU tensor runs (``kernels.ops``) and what
-the kernel is held against on the card.
+``gmm(x, w)`` launches ``csrc/gmm.cu``, which replaces the Pallas TPU
+kernel ``src/repro/kernels/gmm.py:35 gmm`` of the JAX package. Which dtype
+takes which kernel:
+
+- **bfloat16** (what serving runs): ``gmm_tc_kernel``, on the tensor cores.
+  One block per (expert, 128 rows of C, 128 columns of F); TMA copies 64-deep
+  K steps of x and w into a ring of ``STAGES`` stages in shared memory (the
+  128-byte swizzle), and two consumer warpgroups sum them with
+  ``wgmma.mma_async`` m64n128k16 (f32 += bf16 x bf16) into registers.
+- **float32**: ``gmm_kernel``, float32 FMAs on the CUDA cores (one block per
+  64 x 64 tile, 32-deep chunks). A tensor-core float32 product would be
+  TF32, which the port never uses.
+
+A bf16 CUDA tensor never reaches the CUDA-core kernel or ``gmm_plain``.
+``gmm_plain`` computes the same function with the TPU kernel's op order; it
+is what a CPU tensor runs (``kernels.ops``) and what the kernel is held
+against on the card.
 
 Both take x ``[E, C, D]`` and w ``[E, D, F]`` and return
 ``out[e] = x[e] @ w[e]`` ``[E, C, F]`` in x's type, summed in float32.
 
 Bound (``work``): the operations over the card's bf16 tensor rate
-(989 TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger; the
-kernel's own products run on the float32 CUDA cores (67 TFLOP/s).
+(989 TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger.
 """
 
 from __future__ import annotations
@@ -24,10 +34,17 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the kernel's tile: C and F are multiples of these, D of ``CHUNK``
+#: what the kernels take: C and F multiples of these, D of ``CHUNK`` (the
+#: float32 kernel's tile; the tensor-core kernel zero-fills a tile that runs
+#: past C, D or F)
 BLOCK_C = 64
 BLOCK_F = 64
 CHUNK = 32
+#: the tensor-core kernel's block tile (rows of C, columns of F, depth of one
+#: K step), its ring of stages, and the bytes TMA needs a pointer aligned to
+TC_TILE = (128, 128, 64)
+STAGES = 4
+TMA_ALIGN = 16
 #: the TPU kernel's contraction block (``block_d = min(512, D)``)
 PLAIN_BLOCK_D = 512
 DTYPES = (torch.float32, torch.bfloat16)
@@ -50,24 +67,47 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> tuple:
     return E, C, D, w.shape[2]
 
 
+def smem_plan(stages: int = STAGES) -> dict:
+    """Bytes of dynamic shared memory one tensor-core block asks for, by
+    part, in the order the parts lie (``csrc/gmm.cu``, ``tc_smem_bytes``),
+    with the ``total``: slack to align the ring to the swizzle's 1,024-byte
+    atom, then per stage the x tile (128 rows of 128 bytes) and two w boxes
+    (64 depths of 128 bytes each), then a full and an empty mbarrier per
+    stage."""
+    rows, cols, depth = TC_TILE
+    plan = {"alignment slack": 1024,
+            "x tiles": stages * rows * depth * 2,
+            "w boxes": stages * depth * cols * 2,
+            "mbarriers": stages * 2 * 8}
+    plan["total"] = sum(plan.values())
+    return plan
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.gmm_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        for name in ("gmm_smem_bytes", "gmm_stages"):
+            getattr(lib, name).restype = ctypes.c_int
+        lib.gmm_smem_bytes.argtypes = [ctypes.c_int]
+        lib.gmm_stages.argtypes = []
     return lib
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``out[e] = x[e] @ w[e]`` in ONE launch of the CUDA kernel, on
-    ``torch.cuda.current_stream()``.
+    """``out[e] = x[e] @ w[e]`` in ONE launch of a CUDA kernel, on
+    ``torch.cuda.current_stream()``: bfloat16 on the tensor cores
+    (``gmm_tc_kernel``, TMA + ``wgmma``), float32 on the CUDA cores
+    (``gmm_kernel``).
 
-    Raises on tensors the kernel does not take (not on the card, other or
+    Raises on tensors the kernels do not take (not on the card, other or
     mixed dtypes, C or F not a multiple of 64, D not a multiple of 32, a
-    non-contiguous layout) and on a refused launch; it never runs the plain
-    version. It has no gradient (``kernels.ops.grouped_matmul`` refuses a
-    CUDA input that needs one). ``gmm.launches`` counts launches."""
+    non-contiguous layout, a bfloat16 tensor not 16-byte aligned for TMA)
+    and on a refused launch; it never runs the plain version. It has no
+    gradient (``kernels.ops.grouped_matmul`` refuses a CUDA input that
+    needs one). ``gmm.launches`` counts launches."""
     E, C, D, F = _check(x, w)
     if not x.is_cuda:
         raise ValueError("gmm launches the CUDA kernel and takes CUDA "
@@ -82,6 +122,9 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name} must start {TMA_ALIGN}-byte aligned "
+                             f"(TMA), got {t.data_ptr():#x}")
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out

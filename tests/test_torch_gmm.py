@@ -14,9 +14,11 @@ Tolerances, as max|port - jax| / max|jax| (measured on the CPU):
   at other places in the two frameworks);
 - D = 640 (a multiple of 128, not of 512; the TPU kernel asserts there):
   ``gmm_plain`` vs a float64 einsum within 2e-6 (measured 4.4e-7).
-The CUDA kernel itself runs only on a card (the ``cuda`` test below, and
-``chip_smoke.py``); its source runs on the CPU in
-``tests/test_torch_kernel_emulation.py``.
+The CUDA kernels themselves (bfloat16 on the tensor cores, float32 on the
+CUDA cores) run only on a card (the ``cuda`` tests below, and
+``chip_smoke.py``); their source runs on the CPU in
+``tests/test_torch_kernel_emulation.py`` (bfloat16 through its host model
+of the tensor-core kernel).
 """
 
 import jax.numpy as jnp
@@ -170,17 +172,20 @@ def test_work_counts_the_serving_shapes():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 256, 640, 384), (3, 192, 160, 192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_the_card(dtype, monkeypatch):
-    """Run on a CUDA card with nvcc: the kernel against its plain version at
-    E 4, C 256, D 640, F 384. float32 within 1e-5 relative; bfloat16 within
-    one bf16 ulp of the largest value (chip_smoke.py holds the serving
-    shapes)."""
+def test_kernel_matches_plain_on_the_card(dtype, shape, monkeypatch):
+    """Run on a CUDA card with nvcc: the kernel (bfloat16 on the tensor
+    cores, float32 on the CUDA cores) against its plain version at E 4, C
+    256, D 640, F 384, and at E 3, C 192, D 160, F 192, where the
+    tensor-core kernel's 128 x 128 x 64 tiles run past C, F and D. float32
+    within 1e-5 relative; bfloat16 within one bf16 ulp of the largest value
+    (chip_smoke.py holds the serving shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     x, w = (torch.from_numpy(a).to("cuda", dtype)
-            for a in _inputs(4, 256, 640, 384, seed=4))
+            for a in _inputs(*shape, seed=4))
     before = gmm.launches
     got = gmm(x, w)
     again = gmm(x, w)
@@ -190,3 +195,19 @@ def test_kernel_matches_plain_on_the_card(dtype, monkeypatch):
     assert torch.equal(got, again)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     assert _rel(got.float().cpu(), want.float().cpu()) <= tol
+
+
+@pytest.mark.cuda
+def test_the_kernel_refuses_a_misaligned_bf16_tensor_on_the_card():
+    """TMA reads from 16-byte aligned addresses: a bfloat16 x that starts 2
+    bytes into its storage is refused before anything launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    E, C, D, F = 1, 64, 64, 64
+    x = torch.zeros(E * C * D + 1, dtype=torch.bfloat16, device="cuda")
+    x = x[1:].view(E, C, D)
+    w = torch.zeros((E, D, F), dtype=torch.bfloat16, device="cuda")
+    before = gmm.launches
+    with pytest.raises(ValueError, match="aligned"):
+        gmm(x, w)
+    assert gmm.launches == before

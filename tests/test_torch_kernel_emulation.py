@@ -12,6 +12,16 @@ without a card: the kernels' indexing, shared-memory carve-up, argument
 unpacking and op order. What it cannot check: races, launch limits and the
 card's own ``expf``/``powf`` (the chip check does, ``chip_smoke.py``).
 
+The bfloat16 ``gmm`` is the exception: its tensor-core kernel (TMA,
+mbarriers, ``wgmma``) has no one-thread form, so without nvcc the source's
+launcher runs its host model of that kernel instead (``csrc/gmm.cu``): the
+same blocks, K steps, stage offsets, box coordinates, wgmma descriptors and
+epilogue, with TMA's zero fill and 128-byte swizzle written out and each
+product read through its descriptors as the tensor cores address the
+swizzled layouts. What the CPU no longer covers there: the PTX, the
+barriers, the accumulator fragment layout and the tensor cores' own order
+of sums (``chip_smoke.py``'s ``check_gmm`` holds those on the card).
+
 Tolerances (measured): ``ddpg_learn`` within 1e-6 x max|plain| per tensor
 (measured 1.0e-7); ``episode_learn`` knob indices, restarts, keys, counts
 and cursors EXACT, floats within 2e-6 relative (measured 4.5e-7);
@@ -19,20 +29,20 @@ and cursors EXACT, floats within 2e-6 relative (measured 4.5e-7);
 4.8e-7 and 1.6e-7), bfloat16 out within one bf16 ulp of its largest value
 (2^-7 relative; measured 4.1e-5: 0.04 % of the elements round the other
 way) and lse within 2e-6; ``flash_attention_bwd`` (dq and dk/dv) float32
-within 2e-6 relative (measured 4.2e-7), bfloat16 within one bf16 ulp of
-the largest value (2^-7 relative; measured 3.0e-4: a few elements round
-the other way); ``gmm`` float32 within 2e-6 relative, bfloat16 within one
-bf16 ulp of the largest value (measured 0 and 0: at D = 160 the one FMA
-chain per output sums in the CPU library's order); ``ssd_scan`` y and
+within 2e-6 relative (measured 4.2e-7), bfloat16 within one bf16 ulp of the
+largest value (2^-7 relative; measured 3.0e-4: a few elements round the
+other way); ``gmm`` float32 (the CUDA-core kernel) within 2e-6 relative,
+bfloat16 (the tensor-core kernel's host model) within one bf16 ulp of the
+largest value (measured 0 and 0; at the edge and whole tiles 0, and 2.1e-4
+at D = 384, where one element rounds the other way); ``ssd_scan`` y and
 state within 2e-6 relative in float32 (measured 6.6e-8 and 5.3e-9: the
 float64 cumsum rounds alike, the sums of products differ in order), y
 within one bf16 ulp of its largest value and the float32 state within 2e-6
-in bfloat16 (measured 0 and 1.1e-8); ``wkv6_scan`` y and state within
-2e-6 relative in float32 (measured 2.7e-7 and 2.1e-8, strong decay
-included: the cumsums agree bitwise, the sums of products differ in
-order), y within one bf16 ulp of its largest value and the float32 state
-within 2e-6 in bfloat16 (measured 1.1e-4 and 3.6e-8: a few elements of y
-round the other way).
+in bfloat16 (measured 0 and 1.1e-8); ``wkv6_scan`` y and state within 2e-6
+relative in float32 (measured 2.7e-7 and 2.1e-8, strong decay included: the
+cumsums agree bitwise, the sums of products differ in order), y within one
+bf16 ulp of its largest value and the float32 state within 2e-6 in bfloat16
+(measured 1.1e-4 and 3.6e-8: a few elements of y round the other way).
 """
 
 import ctypes
@@ -57,8 +67,10 @@ from repro_torch.kernels import episode_learn as el
 from repro_torch.kernels.ddpg_learn import _hyper, ddpg_learn_plain
 from repro_torch.kernels.flash_attention import bind_bwd, bwd_smem_plan, \
     flash_attention_bwd_plain, flash_attention_fwd_plain, scale_of
+from repro_torch.kernels.gmm import STAGES as GMM_STAGES
 from repro_torch.kernels.gmm import _bind as gmm_bind
 from repro_torch.kernels.gmm import gmm_plain
+from repro_torch.kernels.gmm import smem_plan as gmm_smem_plan
 from repro_torch.kernels.ssd_scan import _bind as ssd_bind
 from repro_torch.kernels.ssd_scan import smem_plan as ssd_smem_plan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
@@ -340,25 +352,70 @@ def test_flash_attention_bwd_source_matches_plain(emulated, causal, dtype):
         assert sizes(d, 1) == plan["dkv"]["total"]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gmm_source_matches_plain(emulated, dtype):
-    """Three experts, two row tiles and three column tiles of 64, D = 160
-    (five chunks of 32, the last block of the plain version partial); the
-    launcher refuses a D that is not a multiple of 32."""
-    E, C, D, F = 3, 128, 160, 192
-    rng = np.random.default_rng(7)
+def _gmm_run(lib, shape, dtype, seed):
+    """x, w from numpy; the launcher's output (NaN where it wrote nothing)
+    and the plain version's."""
+    E, C, D, F = shape
+    rng = np.random.default_rng(seed)
     x = torch.tensor(rng.standard_normal((E, C, D)), dtype=dtype)
     w = torch.tensor(rng.standard_normal((E, D, F)), dtype=dtype)
     want = gmm_plain(x, w)
-    got = torch.empty_like(want)
+    got = torch.full_like(want, float("nan"))
+    err = lib.gmm_launch(x.data_ptr(), w.data_ptr(), got.data_ptr(), E, C,
+                         D, F, int(dtype == torch.bfloat16), None)
+    return err, got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_source_matches_plain(emulated, dtype):
+    """Three experts at C 128, D 160, F 192: float32 runs the CUDA-core
+    kernel (two row tiles and three column tiles of 64, five chunks of 32),
+    bfloat16 the tensor-core kernel's host model (one row tile of 128, two
+    column tiles of 128, the second half past F, three K steps of 64, the
+    last half past D); the last block of the plain version is partial. The
+    launcher refuses a D that is not a multiple of 32."""
+    E, C, D, F = 3, 128, 160, 192
     lib = gmm_bind(emulated["gmm"])
+    err, got, want = _gmm_run(lib, (E, C, D, F), dtype, seed=7)
+    assert err == 0
     bf16 = int(dtype == torch.bfloat16)
-    assert lib.gmm_launch(x.data_ptr(), w.data_ptr(), got.data_ptr(), E, C,
-                          D, F, bf16, None) == 0
-    assert lib.gmm_launch(x.data_ptr(), w.data_ptr(), got.data_ptr(), E, C,
-                          100, F, bf16, None) == -1
+    assert lib.gmm_launch(got.data_ptr(), got.data_ptr(), got.data_ptr(), E,
+                          C, 100, F, bf16, None) == -1
     tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
     assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("shape", [
+    (3, 192, 160, 192),   # a partial row, column and K tile, three experts
+    (1, 64, 32, 64),      # one tile, partial on every axis
+    (2, 256, 128, 256),   # whole tiles only: two of each, two K steps
+    (1, 128, 384, 128),   # six K steps: the ring of stages wraps
+])
+def test_gmm_tensor_core_model_matches_plain(emulated, shape):
+    """The bfloat16 launcher's host model of the tensor-core kernel at edge
+    and whole tiles: every output written (the buffer starts NaN), within
+    one bf16 ulp of the largest value of the plain version."""
+    err, got, want = _gmm_run(gmm_bind(emulated["gmm"]), shape,
+                              torch.bfloat16, seed=sum(shape))
+    assert err == 0
+    assert _rel(got, want) <= 2.0 ** -7
+
+
+def test_gmm_tensor_core_contract_and_plan(emulated):
+    """The bfloat16 launcher takes C and F that are positive multiples of
+    64 and D a positive multiple of 32, and refuses the rest with -1 before
+    it reads anything; the shared memory it asks for is ``smem_plan``'s,
+    with the stages ``kernels/gmm.py`` states, within the 232,448 bytes a
+    block may use."""
+    lib = gmm_bind(emulated["gmm"])
+    for E, C, D, F in ((1, 96, 64, 64), (1, 64, 64, 96), (1, 64, 48, 64),
+                       (0, 64, 64, 64), (1, 0, 64, 64), (1, 64, 0, 64),
+                       (1, 64, 64, -64)):
+        assert lib.gmm_launch(None, None, None, E, C, D, F, 1, None) == -1
+    assert lib.gmm_stages() == GMM_STAGES
+    for stages in (2, 3, 4, 5):
+        assert lib.gmm_smem_bytes(stages) == gmm_smem_plan(stages)["total"]
+    assert gmm_smem_plan()["total"] == 132_160 <= 232_448
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
