@@ -10,11 +10,12 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   power limit;
   2. build        every CUDA source of ``src/repro_torch/kernels/csrc``
                   compiled (one ``nvcc`` per source, all started together);
-                  the tensor-core ``gmm`` kernel read from its library
-                  by ``cuobjdump``: registers, stack and local bytes (held:
-                  0, so no spills) and the count of ``HGMMA`` instructions
-                  (held: not 0), beside its ``ptxas`` line where this run
-                  compiled it;
+                  the tensor-core kernels (``gmm_tc_kernel``,
+                  ``flash_fwd_tc_kernel``) read from their libraries by
+                  ``cuobjdump``: registers, stack and local bytes (held: 0,
+                  so no spills) and the count of ``HGMMA`` instructions in
+                  each kernel's own SASS (held: not 0), beside its
+                  ``ptxas`` line where this run compiled it;
   3. check        the ``ddpg_learn`` kernel against its plain PyTorch version
                   at N = 1 and N = 1024 sessions on the 2-D and 8-D spaces,
                   from independent ``ddpg_init`` states and minibatches
@@ -51,13 +52,15 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   the first step after it, and the replay windows' rows of
                   the warmup steps must agree within ``TUNE_WINDOW_RTOL``
                   (the rows of the later agreeing steps are reported);
-  7. check_flash  the ``flash_attention_fwd`` kernel against its plain
-                  version on the same numpy inputs: bfloat16 at the two
-                  serving shapes (B 4, S 512 and B 1, S 4096; 32 query over 4
-                  key/value heads, D 128) and at zamba2-7b's shared
-                  attention (B 4, S 4096, 32 heads, D 112), causal; float32
-                  at B 2, S 256, 8 over 2 heads, D 64, causal and not.
-                  ``out`` and ``lse`` held within ``FLASH_*`` below;
+  7. check_flash  the ``flash_attention_fwd`` kernels against their plain
+                  version on the same numpy inputs: bfloat16 (the
+                  tensor-core kernel) at the two serving shapes (B 4, S 512
+                  and B 1, S 4096; 32 query over 4 key/value heads, D 128)
+                  and at zamba2-7b's shared attention (B 4, S 4096, 32
+                  heads, D 112), causal; float32 (the CUDA-core kernel) at B
+                  2, S 256, 8 over 2 heads, D 64, causal and not. ``out``
+                  and ``lse`` held within ``FLASH_*`` below, two launches
+                  bitwise equal;
   8. serve        the LM serving path, ``repro_torch.launch.serve.serve`` on
                   Yi-9B at its published depth and width in bfloat16, random
                   weights from a seeded ``torch.Generator`` on the card: 4
@@ -136,11 +139,13 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   attention), then 4 x 200 -> 8 (chunk 200: 81 ``ssd_scan``
                   launches, no flash launch, 200 not being a multiple of
                   128); no decode step launches either kernel. Then the 4 x
-                  4096 prefill once more with the kernel held against its
+                  4096 prefill once more with the scan held against its
                   plain version on each of the 81 layers' own inputs (the
-                  ``SSD_*`` bf16 bounds), and through the plain version: the
-                  last-token logits' gap is reported, not held (random
-                  weights amplify rounding);
+                  ``SSD_*`` bf16 bounds) and the flash forward (D 112) on
+                  each of the 9 shared attentions' own q, k, v (the
+                  ``FLASH_*`` bf16 bounds), and through the scan's plain
+                  version: the last-token logits' gap is reported, not held
+                  (random weights amplify rounding);
  15. check_wkv    the ``wkv6_scan`` kernel against its plain version on the
                   same numpy inputs: float32 at BH 6, S 384, c 64, chunk 64;
                   at BH 6, S 120, c 16, chunk 24 (the smoke head size, a
@@ -169,12 +174,15 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
  18. timing       CUDA-event medians of every kernel and its plain version:
                   the learners at N = 1 and N = 1024 (the episode's plain
                   version at N = 1 only, its pre-draw timed apart), the flash
-                  forward at the two serving shapes beside PyTorch's
-                  ``scaled_dot_product_attention`` on the same tensors, the
-                  flash forward, dq and dk/dv at the training shape beside
-                  SDPA's forward and backward, ``gmm`` at the two MoE
-                  serving shapes beside ``torch.bmm`` (with its TFLOP/s,
-                  its share of the bound and its ratio to ``torch.bmm``),
+                  forward at the serving shapes of Yi-9B, zamba2-7b and
+                  deepseek-moe-16b beside PyTorch's
+                  ``scaled_dot_product_attention`` on the same tensors (with
+                  its TFLOP/s, its share of the bound and its ratio to
+                  SDPA), the flash forward, dq and dk/dv at the training
+                  shape beside SDPA's forward and backward, ``gmm`` at the
+                  two MoE serving shapes beside ``torch.bmm`` (with its
+                  TFLOP/s, its share of the bound and its ratio to
+                  ``torch.bmm``),
                   ``ssd_scan`` at zamba2-7b's serving shape and
                   ``wkv6_scan`` at rwkv6-3b's forward shape (no PyTorch
                   call computes either scan); each beside the bound from
@@ -406,21 +414,21 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def gmm_tc_build(log: dict) -> dict:
-    """The tensor-core ``gmm`` kernel as built, read from its library in
-    every run by ``cuobjdump``: its registers and its stack and local
-    bytes (``-res-usage``; a spill would show there) and the count of
-    ``HGMMA`` instructions in its SASS; beside them its ``ptxas`` lines
-    where this run compiled it (None where the library was built before).
-    Raises unless the kernel is found with no stack or local bytes and at
-    least one ``HGMMA``."""
+def tc_build(log: dict, name: str, kernel: str) -> dict:
+    """The tensor-core kernel ``kernel`` of ``csrc/<name>.cu`` as built,
+    read from its library in every run by ``cuobjdump``: its registers and
+    its stack and local bytes (``-res-usage``; a spill would show there)
+    and the count of ``HGMMA`` instructions in its own SASS; beside them its
+    ``ptxas`` lines where this run compiled it (None where the library was
+    built before). Raises unless the kernel is found with no stack or local
+    bytes and at least one ``HGMMA``."""
     import re
     import shutil
 
     from repro_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = str(build._target("gmm"))
+    lib = str(build._target(name))
 
     def dump(flag: str) -> str:
         return subprocess.run([tool, flag, lib], capture_output=True,
@@ -429,27 +437,32 @@ def gmm_tc_build(log: dict) -> dict:
     usage = None
     lines = dump("-res-usage").splitlines()
     for head, body in zip(lines, lines[1:]):
-        if head.strip().startswith("Function") and "gmm_tc_kernel" in head:
+        if head.strip().startswith("Function") and kernel in head:
             usage = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", body)}
     if usage is None:
-        raise AssertionError(f"cuobjdump -res-usage finds no gmm_tc_kernel "
-                             f"in {lib}")
+        raise AssertionError(f"cuobjdump -res-usage finds no {kernel} in "
+                             f"{lib}")
     ptxas = None
-    text = log.get("gmm", {}).get("ptxas", "")
+    text = log.get(name, {}).get("ptxas", "")
     for entry in text.split("Compiling entry function")[1:]:
-        if "gmm_tc_kernel" in entry.splitlines()[0]:
+        if kernel in entry.splitlines()[0]:
             ptxas = [ln.strip() for ln in entry.splitlines()
                      if "spill" in ln or "registers" in ln]
+    hgmma, inside = 0, False
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and "HGMMA" in line:
+            hgmma += 1
     facts = {"registers": usage.get("REG"),
              "local_bytes": usage.get("STACK", 0) + usage.get("LOCAL", 0),
-             "hgmma": sum("HGMMA" in ln for ln in dump("-sass").splitlines()),
-             "ptxas": ptxas}
+             "hgmma": hgmma, "ptxas": ptxas}
     if facts["local_bytes"]:
-        raise AssertionError(f"gmm_tc_kernel uses stack or local memory "
+        raise AssertionError(f"{kernel} uses stack or local memory "
                              f"(spills): {usage}")
     if facts["hgmma"] == 0:
-        raise AssertionError("gmm's library has no HGMMA instruction: the "
-                             "bf16 products are not on the tensor cores")
+        raise AssertionError(f"{kernel} has no HGMMA instruction: its bf16 "
+                             f"products are not on the tensor cores")
     return facts
 
 
@@ -1799,11 +1812,9 @@ def phase_timing_gmm(smi: str) -> list:
     """CUDA-event medians of ``gmm`` at deepseek-moe-16b's two bf16 serving
     shapes, of its plain version, and of ``torch.bmm`` on the same tensors
     (the yardstick only: the port never calls it on the aligned path),
-    beside the bound from ``work()``; and of the flash forward at the same
-    model's 4 x 4096 prefill."""
+    beside the bound from ``work()``."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.gmm import gmm, gmm_plain, work
 
     rows = []
@@ -1831,21 +1842,6 @@ def phase_timing_gmm(smi: str) -> list:
         emit(row)
         rows.append(row)
         del x, w
-    # the flash forward at deepseek-moe-16b's 4 x 4096 prefill (16 heads,
-    # no GQA), for the prefill's breakdown
-    shape = (4, 4096, 16, 16, 128)
-    q, k, v = flash_inputs(shape, "bfloat16", seed=960)
-    before = fa.flash_attention_fwd.launches
-    flash_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 5,
-                       warmup=1)
-    fa.flash_attention_fwd.launches = before
-    wk = fa.work(4, 16, 16, 4096, 128, True, 2)
-    emit({"phase": "timing", "kernel": "flash_attention_fwd",
-          "dtype": "bfloat16", "shape_BSHKvD": list(shape), "causal": True,
-          "ms": flash_ms, "bound_ms": max(wk["flops"] / PEAK_BF16_FLOPS,
-                                          wk["bytes"] / PEAK_BYTES) * 1e3,
-          "card": smi})
-    del q, k, v
     torch.cuda.empty_cache()
     return rows
 
@@ -1955,7 +1951,8 @@ def phase_serve_hybrid() -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, \
+        flash_attention_fwd_plain
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import init_params, model_defs
@@ -2044,12 +2041,20 @@ def phase_serve_hybrid() -> dict:
         serve_mod.make_prefill_step = make_prefill
         serve_mod.make_decode_step = make_decode
 
-    # the 4 x 4096 request once more: the kernel held against its plain
-    # version on each layer's own inputs, then the prefill through the
-    # plain version (ops dispatches a CUDA tensor to the kernel; these runs
-    # swap what it calls)
+    # the 4 x 4096 request once more: the scan kernel held against its
+    # plain version on each layer's own inputs, and the flash kernel (D 112)
+    # on each shared attention's, then the prefill through the scan's plain
+    # version (ops dispatches a CUDA tensor to the kernels; these runs swap
+    # what it calls)
     kernel = ops.ssd_scan
-    layer_errs = []
+    flash_kernel = ops.flash_attention_fwd
+    layer_errs, flash_errs = [], []
+
+    def flash_checked_route(q, k, v, causal=True):
+        out, lse = flash_kernel(q, k, v, causal)
+        flash_errs.append(flash_errors(
+            out, lse, *flash_attention_fwd_plain(q, k, v, causal)))
+        return out, lse
 
     def checked_route(*args, heads, chunk):
         y, state = kernel(*args, heads=heads, chunk=chunk)
@@ -2081,15 +2086,25 @@ def phase_serve_hybrid() -> dict:
                "init_seconds": init_s,
                "first_sequence": res.tokens[0].tolist()}
         if seq == HYBRID_REQUESTS[0][1]:
-            before = ssd_scan.launches
+            before = ssd_scan.launches, flash_attention_fwd.launches
             layer_errs.clear()
-            routed(checked_route, lambda: serve_mod.make_prefill_step(
-                cfg, batch, seq + gen)(params, prompts))
-            if len(layer_errs) != L:
+            flash_errs.clear()
+            ops.flash_attention_fwd = flash_checked_route
+            try:
+                routed(checked_route, lambda: serve_mod.make_prefill_step(
+                    cfg, batch, seq + gen)(params, prompts))
+            finally:
+                ops.flash_attention_fwd = flash_kernel
+            if len(layer_errs) != L or len(flash_errs) != n_attn:
                 raise AssertionError(f"serve_hybrid: {len(layer_errs)} "
-                                     f"checked scans, want {L}")
+                                     f"checked scans, want {L}; "
+                                     f"{len(flash_errs)} checked attentions, "
+                                     f"want {n_attn}")
             for i, err in enumerate(layer_errs):
                 hold_ssd(err, f"serve_hybrid ({batch}x{seq}), layer {i}")
+            for i, err in enumerate(flash_errs):
+                hold_flash(err, f"serve_hybrid ({batch}x{seq}), attention "
+                                f"{i}")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             plain_logits, _ = routed(ssd_scan_plain, lambda: serve_mod
@@ -2097,13 +2112,16 @@ def phase_serve_hybrid() -> dict:
                                      (params, prompts))
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
-            if ssd_scan.launches != before + L:
+            if ssd_scan.launches != before[0] + L:
                 raise AssertionError("serve_hybrid: the plain path launched "
                                      "the ssd_scan kernel")
-            ssd_scan.launches = before  # checking launches are not counted
+            # checking launches are not counted
+            ssd_scan.launches, flash_attention_fwd.launches = before
             row.update({
                 "layers_held": worst_of(layer_errs, SSD_ERROR_KEYS),
                 "layer_bounds": ssd_bounds("bfloat16"),
+                "flash_layers_held": worst_of(flash_errs, FLASH_ERROR_KEYS),
+                "flash_layer_bounds": flash_bounds("bfloat16"),
                 "plain_prefill_ms": plain_s * 1e3,
                 "vs_plain_version": {
                     "logits_rel_err": rel_err(res.prefill_logits,
@@ -2122,11 +2140,9 @@ def phase_timing_ssd(smi: str) -> list:
     """CUDA-event medians of ``ssd_scan`` and of its plain version at
     zamba2-7b's bf16 serving shape (4 x 4096 tokens: BH 448, chunk 256),
     beside the bound from ``work()`` (no single PyTorch call computes the
-    SSD scan, so there is no library time); and of the flash forward at
-    the same model's 4 x 4096 prefill (32 heads of 112)."""
+    SSD scan, so there is no library time)."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain, work
 
     dtype, shape = SSD_CASES[2]
@@ -2154,19 +2170,6 @@ def phase_timing_ssd(smi: str) -> list:
            "tflops": wk["flops"] / kernel_ms / 1e9, "card": smi}
     emit(row)
     del args
-    shape = (4, 4096, 32, 32, 112)
-    q, k, v = flash_inputs(shape, "bfloat16", seed=1160)
-    before = fa.flash_attention_fwd.launches
-    flash_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 3,
-                       warmup=1)
-    fa.flash_attention_fwd.launches = before
-    wf = fa.work(4, 32, 32, 4096, 112, True, 2)
-    emit({"phase": "timing", "kernel": "flash_attention_fwd",
-          "dtype": "bfloat16", "shape_BSHKvD": list(shape), "causal": True,
-          "ms": flash_ms, "bound_ms": max(wf["flops"] / PEAK_BF16_FLOPS,
-                                          wf["bytes"] / PEAK_BYTES) * 1e3,
-          "card": smi})
-    del q, k, v
     torch.cuda.empty_cache()
     return [row]
 
@@ -2629,18 +2632,46 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def phase_timing_flash(smi: str) -> list:
-    """CUDA-event medians of ``flash_attention_fwd`` at the two bf16
-    serving shapes (causal), of its plain version, and of PyTorch's
-    ``scaled_dot_product_attention`` on the same tensors (the yardstick
-    only: the port never calls it), beside the bound from ``work()``."""
-    import torch
+def sdpa_ms(q, k, v, causal: bool, runs: int = 20) -> tuple:
+    """CUDA-event median of PyTorch's ``scaled_dot_product_attention`` on
+    the kernel layout (the yardstick only: the port never calls it) and
+    the call's name."""
     import torch.nn.functional as F
+
+    try:
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), runs), \
+            "scaled_dot_product_attention(enable_gqa=True)"
+    except TypeError:  # a PyTorch without enable_gqa: expand k/v first
+        g = q.shape[1] // k.shape[1]
+        ke, ve = (x.repeat_interleave(g, dim=1) for x in (k, v))
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=causal), runs), \
+            "scaled_dot_product_attention(k/v expanded)"
+
+
+#: (dtype, (B, S, H, Kv, D), causal) of the flash forward's timings: the
+#: serving shapes of Yi-9B (4 x 512 and 1 x 4096) and zamba2-7b (4 x 4096,
+#: D 112), then deepseek-moe-16b's 4 x 4096 prefill (16 heads, no GQA)
+FLASH_TIMING = (*FLASH_CASES[:3], ("bfloat16", (4, 4096, 16, 16, 128), True))
+#: what the ``kernels`` line repeats of each flash forward timing
+FLASH_ROW_KEYS = ("shape_BSHKvD", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "tflops", "bound_share", "vs_library")
+
+
+def phase_timing_flash(smi: str) -> list:
+    """CUDA-event medians of ``flash_attention_fwd`` at the serving shapes
+    of ``FLASH_TIMING`` (bf16, causal: the tensor-core kernel), of its plain
+    version, and of PyTorch's ``scaled_dot_product_attention`` on the same
+    tensors (the yardstick only: the port never calls it), beside the bound
+    from ``work()``: TFLOP/s and the share of the bound from the 4 D
+    operations per pair that ``work()`` counts."""
+    import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     rows = []
-    for dtype, shape, causal in FLASH_CASES[:2]:
+    for dtype, shape, causal in FLASH_TIMING:
         B, S, H, Kv, D = shape
         q, k, v = flash_inputs(shape, dtype, seed=600)
         before = fa.flash_attention_fwd.launches
@@ -2650,15 +2681,7 @@ def phase_timing_flash(smi: str) -> list:
         plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v,
                                                                 causal),
                            5, warmup=1)
-        try:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True), 20)
-            library_call = "scaled_dot_product_attention(enable_gqa=True)"
-        except TypeError:  # a PyTorch without enable_gqa: expand k/v first
-            ke, ve = (x.repeat_interleave(H // Kv, dim=1) for x in (k, v))
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, ke, ve, is_causal=causal), 20)
-            library_call = "scaled_dot_product_attention(k/v expanded)"
+        library_ms, library_call = sdpa_ms(q, k, v, causal)
         w = fa.work(B, H, Kv, S, D, causal, q.element_size())
         flops_ms = w["flops"] / PEAK_BF16_FLOPS * 1e3
         bytes_ms = w["bytes"] / PEAK_BYTES * 1e3
@@ -2671,9 +2694,12 @@ def phase_timing_flash(smi: str) -> list:
                "bound_f32_cuda_cores_ms": w["flops"] / PEAK_F32_FLOPS * 1e3,
                "flops": w["flops"], "bytes": w["bytes"],
                "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
-               "tflops": w["flops"] / kernel_ms / 1e9, "card": smi}
+               "tflops": w["flops"] / kernel_ms / 1e9,
+               "vs_library": kernel_ms / library_ms, "card": smi}
         emit(row)
         rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2744,7 +2770,8 @@ def phase_timing_flash_train(smi: str) -> list:
                "bound_f32_cuda_cores_ms": w["flops"] / PEAK_F32_FLOPS * 1e3,
                "flops": w["flops"], "bytes": w["bytes"],
                "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
-               "tflops": w["flops"] / kernel_ms / 1e9, "card": smi}
+               "tflops": w["flops"] / kernel_ms / 1e9,
+               "vs_library": kernel_ms / library_ms, "card": smi}
         emit(row)
         rows.append(row)
     single = fa.work_bwd(B, H, Kv, S, D, causal, q.element_size())
@@ -2899,10 +2926,11 @@ def main() -> int:
     log = build.build_all()
     for name, entry in log.items():
         print(f"[{name}] nvcc -Xptxas -v:\n{entry['ptxas']}", file=sys.stderr)
-    gmm_build = gmm_tc_build(log)
+    gmm_build = tc_build(log, "gmm", "gmm_tc_kernel")
+    flash_build = tc_build(log, "flash_attention_fwd", "flash_fwd_tc_kernel")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in log.items()},
-          "gmm_tc_kernel": gmm_build})
+          "gmm_tc_kernel": gmm_build, "flash_fwd_tc_kernel": flash_build})
 
     if sys.argv[1:] == ["--drift"]:
         phase_drift()
@@ -2989,18 +3017,24 @@ def main() -> int:
         "bf16_share_over_one_step": flash_err["out_share_over_one_step"],
         "lse_rel_err": flash_err["lse_rel_err"],
         "serve_layers_held": [r["layers_held"] for r in served["rows"]],
+        "serve_hybrid_layers_held": hybrid_held["flash_layers_held"],
         "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
         "bound_ms": flash_rows[0]["bound_ms"],
         "bound_by": flash_rows[0]["bound_by"],
         "library_ms": flash_rows[0]["library_ms"],
+        "library_call": flash_rows[0]["library_call"],
         "shape_BSHKvD": flash_rows[0]["shape_BSHKvD"], "dtype": "bfloat16",
-        "at_S4096": {key: flash_rows[1][key] for key in (
-            "shape_BSHKvD", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
-        "at_training_shape": {key: train_rows["flash_attention_fwd"][key]
-                              for key in ("shape_BSHKvD", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}, "ok": True},
+        "tflops": flash_rows[0]["tflops"],
+        "bound_share": flash_rows[0]["bound_share"],
+        "vs_library": flash_rows[0]["vs_library"],
+        "tc_kernel": flash_build,
+        **{at: {key: row[key] for key in FLASH_ROW_KEYS}
+           for at, row in (("at_S4096", flash_rows[1]),
+                           ("at_zamba2", flash_rows[2]),
+                           ("at_deepseek", flash_rows[3]),
+                           ("at_training_shape",
+                            train_rows["flash_attention_fwd"]))},
+        "ok": True},
         *({"name": name, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "replaces": replaces, "launches": trained["launches"][index],

@@ -69,22 +69,25 @@
 // zero fill and 128-byte swizzle written out, and each wgmma read through
 // its descriptors as the tensor cores address the swizzled layouts. It
 // cannot show the PTX, the barriers, the fragment layout or the tensor
-// cores' own order of sums; the card's checks do.
+// cores' own order of sums; the card's checks do. The TMA, mbarrier,
+// descriptor and host-model parts are tma_wgmma.cuh's, shared with
+// flash_attention_fwd.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#ifdef __CUDACC__
-#include <cuda.h>
-#else
+#include "tma_wgmma.cuh"
+
+#ifndef __CUDACC__
 #include <algorithm>
-#include <cstring>
 #include <vector>
 #endif
 
 namespace {
+
+using namespace tc;
 
 struct Dims {
   int E, C, D, F;
@@ -201,30 +204,16 @@ constexpr int kWgRows = 64;           // rows per consumer warpgroup
 constexpr int kConsumers = kTcM / kWgRows;           // warpgroups
 constexpr int kTcThreads = kConsumers * 128 + 32;    // + the producer warp
 constexpr int kBoxN = 64;             // columns of one w box: 128 bytes
-constexpr int kRowBytes = 128;        // one box row, the swizzle's span
 constexpr int kXTileBytes = kTcM * kRowBytes;        // 16 KiB
 constexpr int kWBoxBytes = kTcK * kRowBytes;         // 8 KiB
 constexpr int kStageBytes = kXTileBytes + (kTcN / kBoxN) * kWBoxBytes;
 constexpr int kStages = 4;
-constexpr int kSwizzleAtom = 1024;    // 8 rows of 128 bytes
-constexpr int kMmaK = 16;             // depth of one wgmma
+static_assert(kWgRows == kMmaM, "a consumer warpgroup's rows are one wgmma's");
 
 // Bytes of dynamic shared memory a block asks for: slack to align the ring
 // to the swizzle atom, the stages, a full and an empty mbarrier per stage.
 __host__ __device__ constexpr int tc_smem_bytes(int stages) {
   return kSwizzleAtom + stages * kStageBytes + stages * 2 * 8;
-}
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// A shared-memory matrix descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (in 16-byte units), layout type 1.
-__host__ __device__ inline std::uint64_t sw128_desc(std::uint32_t addr,
-                                                    std::uint32_t lbo,
-                                                    std::uint32_t sbo) {
-  return (std::uint64_t)((addr & 0x3FFFFu) >> 4) |
-         ((std::uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((std::uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
 }
 
 // The descriptors of K-slice kk (16 deep) of a stage, for warpgroup wg.
@@ -271,25 +260,6 @@ __host__ __device__ inline void stage_mmas(const Mma& mma,
     mma(a_desc(stage, wg, kk), b_desc(stage, kk));
 }
 
-// The wgmma accumulator fragment (m64nN, f32): thread t of the warpgroup
-// holds, in register i, row frag_row(t, i) and column frag_col(t, i).
-__host__ __device__ constexpr int frag_row(int t, int i) {
-  return 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
-}
-__host__ __device__ constexpr int frag_col(int t, int i) {
-  return 8 * (i / 4) + 2 * (t % 4) + i % 2;
-}
-
-__host__ __device__ inline void store_pair(__nv_bfloat16* p, float a,
-                                           float b) {
-#ifdef __CUDACC__
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-#else
-  p[0] = __float2bfloat16_rn(a);
-  p[1] = __float2bfloat16_rn(b);
-#endif
-}
-
 // Thread t's accumulators to out as bf16 pairs, for the warpgroup's rows
 // row0.. and the block's columns col0..; rows >= C and columns >= F masked.
 __host__ __device__ inline void store_fragment(__nv_bfloat16* out,
@@ -305,13 +275,6 @@ __host__ __device__ inline void store_fragment(__nv_bfloat16* out,
   }
 }
 
-// A tensor map's shape: dims and byte strides innermost first, the box.
-struct MapSpec {
-  std::uint64_t dims[3];
-  std::uint64_t strides[2];
-  std::uint32_t box[3];
-};
-
 MapSpec map_spec(int map, const Dims& P) {
   if (map == 0)
     return {{(std::uint64_t)P.D, (std::uint64_t)P.C, (std::uint64_t)P.E},
@@ -323,98 +286,6 @@ MapSpec map_spec(int map, const Dims& P) {
 }
 
 #ifdef __CUDACC__
-
-__device__ __forceinline__ std::uint32_t smem_u32(const void* p) {
-  return (std::uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(std::uint32_t bar,
-                                          std::uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(std::uint32_t bar,
-                                          std::uint32_t parity) {
-  std::uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(std::uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(std::uint32_t bar,
-                                                      std::uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(std::uint32_t dst,
-                                            std::uint64_t map,
-                                            std::uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 std::uint64_t da,
-                                                 std::uint64_t db) {
-  // scale-d 1 (accumulate), scale-a 1, scale-b 1, A K-major (0), B
-  // MN-major (transpose-B 1)
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n\t}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 __global__ void __launch_bounds__(kTcThreads, 1)
 gmm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -474,63 +345,22 @@ gmm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % kStages;
     mbar_wait(full + 8 * s, (kt / kStages) & 1);
-    fence_acc(acc);
+    fence_regs(acc);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-    stage_mmas([&](std::uint64_t da,
-                   std::uint64_t db) { wgmma_m64n128k16(acc, da, db); },
-               ring + s * kStageBytes, wg);
+    stage_mmas(
+        [&](std::uint64_t da, std::uint64_t db) {
+          wgmma_m64n128k16_ss<1>(acc, da, db, 1);  // B MN-major
+        },
+        ring + s * kStageBytes, wg);
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     // the previous step's products are done: release its stage
     asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-    fence_acc(acc);
+    fence_regs(acc);
     if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % kStages));
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  fence_acc(acc);
+  fence_regs(acc);
   store_fragment(out, P, e, c0 + wg * kWgRows, f0, t, acc);
-}
-
-// cuTensorMapEncodeTiled, from the CUDA driver API through the runtime
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// 0, or -2 where cuTensorMapEncodeTiled refuses the map (a pointer not
-// 16-byte aligned)
-int encode_map(CUtensorMap* m, const MapSpec& s, const void* base) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {s.dims[0], s.dims[1], s.dims[2]};
-  const cuuint64_t strides[2] = {s.strides[0], s.strides[1]};
-  const cuuint32_t box[3] = {s.box[0], s.box[1], s.box[2]};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(
-      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -2;
 }
 
 int launch_tc(const void* x, const void* w, void* o, const Dims& P,
@@ -551,88 +381,22 @@ int launch_tc(const void* x, const void* w, void* o, const Dims& P,
 
 #else  // the host model of gmm_tc_kernel
 
-// The 128-byte swizzle on a shared-memory byte address: its 16-byte chunk
-// (bits 4-6) XOR its 128-byte row within the 1,024-byte atom (bits 7-9).
-inline std::uint32_t swizzle128(std::uint32_t a) {
-  return a ^ (((a >> 7) & 7u) << 4);
+// One wgmma m64n128k16 with A K-major and B MN-major, both read through
+// their descriptors (SmemModel::read_a, read_b), summed into acc in k order.
+void model_mma(SmemModel& model, std::uint64_t da, std::uint64_t db,
+               float (*acc)[kTcN]) {
+  float A[kWgRows][kMmaK], B[kMmaK * kTcN];
+  if (!model.read_a(da, A) || !model.read_b(db, 1, kTcN, B)) return;
+  for (int m = 0; m < kWgRows; ++m)
+    for (int n = 0; n < kTcN; ++n) {
+      float s = acc[m][n];
+      for (int k = 0; k < kMmaK; ++k) s += A[m][k] * B[k * kTcN + n];
+      acc[m][n] = s;
+    }
 }
 
-struct Model {
-  std::vector<unsigned char> smem;  // address 0 is the ring's aligned start
-  bool ok = true;
-
-  float at(std::uint32_t addr) {
-    addr = swizzle128(addr);
-    if (addr + 2 > smem.size()) {
-      ok = false;
-      return 0.f;
-    }
-    __nv_bfloat16 h;
-    std::memcpy(&h, &smem[addr], 2);
-    return __bfloat162float(h);
-  }
-
-  // a TMA box load: zero outside the tensor on every axis, the box's rows
-  // of 128 bytes laid at dst on, swizzled
-  void copy(const MapSpec& m, const void* src, std::uint32_t dst, int c0,
-            int c1, int c2) {
-    const unsigned char* g = static_cast<const unsigned char*>(src);
-    for (std::uint32_t i2 = 0; i2 < m.box[2]; ++i2)
-      for (std::uint32_t i1 = 0; i1 < m.box[1]; ++i1)
-        for (std::uint32_t i0 = 0; i0 < m.box[0]; ++i0) {
-          const std::uint64_t g0 = c0 + i0, g1 = c1 + i1, g2 = c2 + i2;
-          unsigned char v[2] = {0, 0};
-          if (g0 < m.dims[0] && g1 < m.dims[1] && g2 < m.dims[2])
-            std::memcpy(v, g + g0 * 2 + g1 * m.strides[0] + g2 * m.strides[1],
-                        2);
-          const std::uint32_t a =
-              swizzle128(dst + ((i2 * m.box[1] + i1) * m.box[0] + i0) * 2);
-          if (a + 2 > smem.size()) {
-            ok = false;
-            continue;
-          }
-          std::memcpy(&smem[a], v, 2);
-        }
-  }
-
-  // one wgmma m64n128k16 with A K-major and B MN-major, both read through
-  // their descriptors as the tensor cores address the 128-byte-swizzled
-  // layouts: A(m, k) at start + (m / 8) SBO + (m % 8) 128 + 2 k, B(k, n) at
-  // start + (n / 64) LBO + (k / 8) SBO + (k % 8) 128 + 2 (n % 64)
-  void mma(std::uint64_t da, std::uint64_t db, float (*acc)[kTcN]) {
-    struct Desc {
-      std::uint32_t start, lbo, sbo, base, layout;
-    };
-    auto decode = [](std::uint64_t d) {
-      return Desc{(std::uint32_t)(d & 0x3FFF) << 4,
-                  (std::uint32_t)((d >> 16) & 0x3FFF) << 4,
-                  (std::uint32_t)((d >> 32) & 0x3FFF) << 4,
-                  (std::uint32_t)((d >> 49) & 7), (std::uint32_t)(d >> 62)};
-    };
-    const Desc a = decode(da), b = decode(db);
-    if (a.layout != 1 || b.layout != 1 || a.base != 0 || b.base != 0) {
-      ok = false;
-      return;
-    }
-    float A[kWgRows][kMmaK], B[kMmaK][kTcN];
-    for (int m = 0; m < kWgRows; ++m)
-      for (int k = 0; k < kMmaK; ++k)
-        A[m][k] = at(a.start + (m / 8) * a.sbo + (m % 8) * 128 + 2 * k);
-    for (int k = 0; k < kMmaK; ++k)
-      for (int n = 0; n < kTcN; ++n)
-        B[k][n] = at(b.start + (n / 64) * b.lbo + (k / 8) * b.sbo +
-                     (k % 8) * 128 + 2 * (n % 64));
-    for (int m = 0; m < kWgRows; ++m)
-      for (int n = 0; n < kTcN; ++n) {
-        float s = acc[m][n];
-        for (int k = 0; k < kMmaK; ++k) s += A[m][k] * B[k][n];
-        acc[m][n] = s;
-      }
-  }
-};
-
 int launch_tc(const void* x, const void* w, void* o, const Dims& P, void*) {
-  Model model;
+  SmemModel model;
   model.smem.assign(tc_smem_bytes(kStages) - kSwizzleAtom, 0);
   const MapSpec maps[2] = {map_spec(0, P), map_spec(1, P)};
   const void* srcs[2] = {x, w};
@@ -653,8 +417,8 @@ int launch_tc(const void* x, const void* w, void* o, const Dims& P, void*) {
       for (int wg = 0; wg < kConsumers; ++wg)
         stage_mmas(
             [&](std::uint64_t da, std::uint64_t db) {
-              model.mma(da, db, reinterpret_cast<float(*)[kTcN]>(
-                                    &tiles[wg * kWgRows * kTcN]));
+              model_mma(model, da, db, reinterpret_cast<float(*)[kTcN]>(
+                                           &tiles[wg * kWgRows * kTcN]));
             },
             stage, wg);
     }

@@ -1,10 +1,27 @@
 """Causal GQA flash attention, forward and backward: the CUDA kernels'
 wrappers, their plain PyTorch versions, and the work they do.
 
-``flash_attention_fwd`` launches ``csrc/flash_attention_fwd.cu`` (one
-thread block per batch row, head and block of 64 queries, the key/value
-tiles a loop inside the block; it replaces the Pallas TPU kernel
-``src/repro/kernels/flash_attention.py:84 _flash_fwd`` of the JAX package).
+``flash_attention_fwd`` launches ``csrc/flash_attention_fwd.cu``, which
+replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py:84
+_flash_fwd`` of the JAX package. Which dtype takes which kernel:
+
+- **bfloat16** (what serving and training run): ``flash_fwd_tc_kernel``.
+  One block per (batch row, head, 128 queries); TMA loads the q tile once
+  and 128-key tiles of k and v into a ring of ``TC_STAGES`` stages (the
+  128-byte swizzle, the head dim zero-filled to 128). Two consumer
+  warpgroups of 64 rows sum the scores ``(q scale) k^T`` on the CUDA cores
+  in this module's plain version's own float32 order (so that they are its
+  scores bit for bit: on random-weight serving layers any other order
+  misses the card's bound), and compute ``p v`` with ``wgmma.mma_async``
+  m64n128k16 on the tensor cores, p from registers as three bf16 terms
+  that hold the float32 p exactly (``tests/test_torch_flash.py`` pins
+  why).
+- **float32**: ``flash_fwd_kernel``, float32 FMAs on the CUDA cores (one
+  block per batch row, head and block of 64 queries, the key/value tiles a
+  loop inside the block). A tensor-core float32 product would be TF32,
+  which the port never uses.
+
+A bf16 CUDA tensor never reaches the CUDA-core kernel or the plain version.
 ``flash_attention_fwd_plain`` computes the same function with the TPU
 kernel's numerics (float32 scores from q upcast and pre-scaled, float32
 ``p`` into ``p v``) and materializes the scores; it is what a CPU tensor
@@ -29,8 +46,12 @@ types of q, k, v. The causal mask compares absolute positions from 0
 (``kpos <= qpos``).
 
 Bounds (``work``, ``work_bwd``): the operations over the card's bf16 tensor
-rate (989 TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger; the
-kernels' own products run on the float32 CUDA cores (67 TFLOP/s).
+rate (989 TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger. The
+bf16 forward sums its 2 D operations per query-key pair for the scores on
+the float32 CUDA cores (67 TFLOP/s) and issues 6 D tensor operations for
+``p v`` where ``work`` counts 2 D (the three terms of p are the precision
+plan's cost, not work); the backward kernels' products run on the float32
+CUDA cores.
 """
 
 from __future__ import annotations
@@ -43,9 +64,17 @@ import torch
 
 from repro_torch.kernels import build
 
+#: what the kernels take: Sq and Sk multiples of these (the float32
+#: kernel's tiles; the tensor-core kernel zero-fills a tile that runs past
+#: Sq or Sk and masks the keys past Sk)
 BLOCK_Q = 64
 BLOCK_K = 64
 MAX_HEAD_DIM = 128
+#: the tensor-core kernel's block (queries) and key tile, its ring of
+#: stages, and the bytes TMA needs a pointer aligned to
+TC_BLOCK = (128, 128)
+TC_STAGES = 2
+TMA_ALIGN = 16
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -87,12 +116,35 @@ def _check_kernel(q, k, v) -> tuple:
     return dims
 
 
+def tc_smem_plan(stages: int = TC_STAGES) -> dict:
+    """Bytes of dynamic shared memory one tensor-core block asks for, by
+    part, in the order the parts lie (``csrc/flash_attention_fwd.cu``,
+    ``tc_smem_bytes``), with the ``total``: slack to align to the swizzle's
+    1,024-byte atom, q times the scale in float32 (128 rows of the head dim
+    zero-filled to 128), per stage a k and a v tile (128 keys each, bf16),
+    the bf16 q tile, whose place then holds each consumer warp's buffer for
+    the exchange of its scores (16 query rows by 64 keys, float32), then a
+    full and an empty mbarrier per stage and the q tile's."""
+    queries, keys = TC_BLOCK
+    plan = {"alignment slack": 1024,
+            "q scale, float32": queries * MAX_HEAD_DIM * 4,
+            "k, v tiles": stages * 2 * keys * MAX_HEAD_DIM * 2,
+            "q tile, then the score exchange": queries * MAX_HEAD_DIM * 2,
+            "mbarriers": (2 * stages + 1) * 8}
+    plan["total"] = sum(plan.values())
+    return plan
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.flash_attention_fwd_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.flash_attention_fwd_tc_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_fwd_tc_smem_bytes.restype = ctypes.c_int
+        lib.flash_attention_fwd_tc_stages.argtypes = []
+        lib.flash_attention_fwd_tc_stages.restype = ctypes.c_int
     return lib
 
 
@@ -104,19 +156,27 @@ def scale_of(D: int) -> np.float32:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> tuple:
-    """Run the forward pass in ONE launch of the CUDA kernel, on
-    ``torch.cuda.current_stream()``. Returns ``(out, lse)``.
+    """Run the forward pass in ONE launch of a CUDA kernel, on
+    ``torch.cuda.current_stream()``: bfloat16 by ``flash_fwd_tc_kernel``
+    (TMA, the scores on the CUDA cores, ``p v`` by ``wgmma``), float32 on
+    the CUDA cores (``flash_fwd_kernel``). Returns ``(out, lse)``.
 
-    Raises on a tensor the kernel does not take (not on the card, another
+    Raises on a tensor the kernels do not take (not on the card, another
     dtype, a head dim that is not a multiple of 8 in [8, 128], a sequence
-    length that is not a multiple of 64, a non-contiguous layout) and on a
-    refused launch; it never runs the plain version.
-    ``flash_attention_fwd.launches`` counts launches."""
+    length that is not a multiple of 64, a non-contiguous layout, a
+    bfloat16 tensor not 16-byte aligned for TMA) and on a refused launch;
+    it never runs the plain version. ``flash_attention_fwd.launches``
+    counts launches."""
     B, H, Kv, Sq, Sk, D = _check_kernel(q, k, v)
     if not q.is_cuda:
         raise ValueError("flash_attention_fwd launches the CUDA kernel and "
                          "takes CUDA tensors; use flash_attention_fwd_plain "
                          "on the CPU")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % TMA_ALIGN:
+                raise ValueError(f"{name} must start {TMA_ALIGN}-byte "
+                                 f"aligned (TMA), got {t.data_ptr():#x}")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:

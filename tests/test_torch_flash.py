@@ -11,6 +11,11 @@ rounds the probabilities to bfloat16 before ``p v``, the flash numerics keep
 them in float32). The CUDA kernel itself runs only on a card (the ``cuda``
 test below, and ``chip_smoke.py``); its source runs on the CPU in
 ``tests/test_torch_kernel_emulation.py``.
+
+The bf16 kernel's precision plan (the scores as the plain version sums
+them, the float32 p into ``p v`` as three bf16 terms that hold it exactly)
+is pinned here against the card's bounds, and rounding p once to bf16 is
+shown to fail them.
 """
 
 import jax.numpy as jnp
@@ -22,7 +27,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import _flash_fwd
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd, \
-    flash_attention_fwd_plain, work
+    flash_attention_fwd_plain, scale_of, work
 
 # (B, S, H, Kv, D)
 SHAPES = [(1, 128, 4, 1, 16), (1, 256, 4, 2, 32)]
@@ -134,6 +139,74 @@ def test_work_counts_the_serving_shapes():
     assert 137.4e9 <= w["flops"] <= 137.5e9
     assert 75.5e6 <= w["bytes"] <= 76.1e6
     assert work(1, 4, 1, 128, 16, False, 4)["flops"] == 4 * 4 * 16 * 128 ** 2
+
+
+#: the card's bounds on the bf16 kernel against its plain version
+#: (``chip_smoke.py``: FLASH_BF16_RTOL, FLASH_BF16_OFF_SHARE)
+CARD_OUT_RTOL = 2.0 ** -8
+CARD_OFF_SHARE = 1e-3
+
+
+def _bf16_steps(a, b):
+    """Per element, |a - b| in units of the bfloat16 spacing at b (as
+    ``chip_smoke.py`` counts them)."""
+    b = b.float()
+    _, exp = torch.frexp(b)
+    step = torch.ldexp(torch.ones_like(b), exp - 8).clamp_min(2.0 ** -133)
+    return (a.float() - b).abs() / step
+
+
+def _split(p, terms: int) -> list:
+    """p (float32) as ``terms`` bf16 terms, each the rounding of what the
+    terms before it left, as the kernel splits it."""
+    out, rest = [], p
+    for _ in range(terms):
+        out.append(rest.bfloat16().float())
+        rest = rest - out[-1]
+    return out
+
+
+def _tensor_core_plan(q, k, v, causal: bool, terms: int):
+    """The bf16 kernel's arithmetic: the scores as the plain version
+    computes them (q times the float32 scale, float32 products); p = exp(s
+    - max) in float32, masked entries 0; l the sum of p; ``p v`` from p as
+    ``terms`` bf16 terms, the products and sums in float64; ``out = p v /
+    l`` in bf16. Also returns whether the terms add up to p exactly."""
+    B, H, S, D = q.shape
+    g = H // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vd = v.double().repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float() * float(scale_of(D)), kf.transpose(-1, -2))
+    if causal:
+        s.masked_fill_(torch.ones(S, S, dtype=torch.bool).triu(1),
+                       -float("inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    parts = _split(p, terms)
+    pv = sum(torch.matmul(x.double(), vd) for x in parts)
+    exact = bool(torch.equal(sum(x.double() for x in parts), p.double()))
+    return (pv / p.double().sum(-1, keepdim=True)).to(torch.bfloat16), exact
+
+
+@pytest.mark.parametrize("terms,within", [(3, True), (1, False)])
+@pytest.mark.parametrize("shape", [(1, 1024, 4, 4, 128), (1, 512, 4, 4, 112)])
+def test_the_tensor_core_precision_plan(shape, terms, within):
+    """Against the float32 plain version rounded to bf16, at Yi-9B's head
+    dim and zamba2-7b's: p as three bf16 terms adds up to the float32 p
+    exactly and stays within the card's bounds (out within 2^-8 of the
+    largest value, at most 1e-3 of the elements more than one bf16 step
+    apart); p rounded once to bf16 puts over 10x that share over one
+    step."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _inputs(*shape,
+                                                                seed=4))
+    want, _ = flash_attention_fwd_plain(q, k, v, True)
+    got, exact = _tensor_core_plan(q, k, v, True, terms)
+    rel = _rel(got.float().numpy(), want.float().numpy())
+    share = float((_bf16_steps(got, want) > 1).float().mean())
+    if within:
+        assert exact
+        assert rel <= CARD_OUT_RTOL and share <= CARD_OFF_SHARE
+    else:
+        assert share > 10 * CARD_OFF_SHARE
 
 
 @pytest.mark.cuda

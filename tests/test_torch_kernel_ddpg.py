@@ -175,11 +175,13 @@ def test_work_counts_scale_with_sessions_and_updates():
 
 def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
     """Every kernel builds from ``csrc``; a library's name hashes its source
-    and every header it includes, so an edited shared header
-    (``ddpg_update.cuh``) gives both learner kernels new names, never a
-    stale build, and leaves the flash-attention, gmm, ssd_scan and
-    wkv6_scan kernels' alone."""
+    and every header it includes, so an edited shared header gives the
+    kernels that include it new names, never a stale build, and leaves the
+    others' alone: ``ddpg_update.cuh`` the two learners',
+    ``tma_wgmma.cuh`` the tensor-core kernels' (the flash forward and
+    gmm)."""
     learners = ["ddpg_learn", "episode_learn"]
+    tensor_cores = ["flash_attention_fwd", "gmm"]
     others = ["flash_attention_bwd", "flash_attention_fwd", "gmm",
               "ssd_scan", "wkv6_scan"]
     assert build.sources() == learners + others
@@ -187,19 +189,23 @@ def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
         target = build._target(name)
         assert target.parent == build.BUILD_DIR
         assert target.name.startswith(f"lib{name}-")
-        headers = ["ddpg_update.cuh"] if name in learners else []
+        headers = ["ddpg_update.cuh"] if name in learners else \
+            ["tma_wgmma.cuh"] if name in tensor_cores else []
         assert [p.name for p in build.dependencies(name)] == \
             [f"{name}.cu"] + headers
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for path in build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
-    before = {n: build._target(n).name for n in build.sources()}
-    header = tmp_path / "ddpg_update.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    after = {n: build._target(n).name for n in build.sources()}
-    assert all(before[n] != after[n] for n in learners)
-    assert all(before[n] == after[n] for n in others)
+    for header, users in (("ddpg_update.cuh", learners),
+                          ("tma_wgmma.cuh", tensor_cores)):
+        before = {n: build._target(n).name for n in build.sources()}
+        path = tmp_path / header
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        after = {n: build._target(n).name for n in build.sources()}
+        assert all(before[n] != after[n] for n in users)
+        assert all(before[n] == after[n] for n in build.sources()
+                   if n not in users)
 
 
 @pytest.mark.cuda

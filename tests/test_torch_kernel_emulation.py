@@ -12,26 +12,31 @@ without a card: the kernels' indexing, shared-memory carve-up, argument
 unpacking and op order. What it cannot check: races, launch limits and the
 card's own ``expf``/``powf`` (the chip check does, ``chip_smoke.py``).
 
-The bfloat16 ``gmm`` is the exception: its tensor-core kernel (TMA,
-mbarriers, ``wgmma``) has no one-thread form, so without nvcc the source's
-launcher runs its host model of that kernel instead (``csrc/gmm.cu``): the
-same blocks, K steps, stage offsets, box coordinates, wgmma descriptors and
-epilogue, with TMA's zero fill and 128-byte swizzle written out and each
-product read through its descriptors as the tensor cores address the
-swizzled layouts. What the CPU no longer covers there: the PTX, the
-barriers, the accumulator fragment layout and the tensor cores' own order
-of sums (``chip_smoke.py``'s ``check_gmm`` holds those on the card).
+The bfloat16 ``gmm`` and flash forward are the exceptions: their
+tensor-core kernels (TMA, mbarriers, ``wgmma``) have no one-thread form, so
+without nvcc each source's launcher runs its host model of that kernel
+instead (``csrc/gmm.cu``, ``csrc/flash_attention_fwd.cu``): the same
+blocks, stage offsets, box coordinates, wgmma descriptors and epilogue,
+with TMA's zero fill and 128-byte swizzle written out and each product read
+through its descriptors as the tensor cores address the swizzled layouts;
+for the flash forward also the scores' lanes and their exchange into the
+accumulator fragment, the softmax, p's three bf16 terms and their packing
+into A fragments. What the CPU no longer covers there: the PTX, the
+barriers, the accumulator fragment layout on the card and the tensor cores'
+own order of sums (``chip_smoke.py``'s ``check_gmm`` and ``check_flash``
+hold those on the card).
 
 Tolerances (measured): ``ddpg_learn`` within 1e-6 x max|plain| per tensor
 (measured 1.0e-7); ``episode_learn`` knob indices, restarts, keys, counts
 and cursors EXACT, floats within 2e-6 relative (measured 4.5e-7);
 ``flash_attention_fwd`` float32 out and lse within 2e-6 relative (measured
-4.8e-7 and 1.6e-7), bfloat16 out within one bf16 ulp of its largest value
-(2^-7 relative; measured 4.1e-5: 0.04 % of the elements round the other
-way) and lse within 2e-6; ``flash_attention_bwd`` (dq and dk/dv) float32
-within 2e-6 relative (measured 4.2e-7), bfloat16 within one bf16 ulp of the
-largest value (2^-7 relative; measured 3.0e-4: a few elements round the
-other way); ``gmm`` float32 (the CUDA-core kernel) within 2e-6 relative,
+4.8e-7 and 1.6e-7), bfloat16 (the tensor-core kernel's host model) out
+within one bf16 ulp of its largest value (2^-7 relative; measured at most
+2.1e-3, with at most 2.5e-5 of the elements more than one bf16 step away)
+and lse within 2e-6 (measured 7.8e-8); ``flash_attention_bwd`` (dq and
+dk/dv) float32 within 2e-6 relative (measured 4.2e-7), bfloat16 within one
+bf16 ulp of the largest value (2^-7 relative; measured 3.0e-4: a few
+elements round the other way); ``gmm`` float32 (the CUDA-core kernel) within 2e-6 relative,
 bfloat16 (the tensor-core kernel's host model) within one bf16 ulp of the
 largest value (measured 0 and 0; at the edge and whole tiles 0, and 2.1e-4
 at D = 384, where one element rounds the other way); ``ssd_scan`` y and
@@ -65,8 +70,10 @@ from repro_torch.envs.lustre_model import LustreEnvState
 from repro_torch.kernels import build
 from repro_torch.kernels import episode_learn as el
 from repro_torch.kernels.ddpg_learn import _hyper, ddpg_learn_plain
-from repro_torch.kernels.flash_attention import bind_bwd, bwd_smem_plan, \
-    flash_attention_bwd_plain, flash_attention_fwd_plain, scale_of
+from repro_torch.kernels.flash_attention import TC_STAGES, bind_bwd, \
+    bwd_smem_plan, flash_attention_bwd_plain, flash_attention_fwd_plain, \
+    scale_of, tc_smem_plan
+from repro_torch.kernels.flash_attention import _bind as flash_bind
 from repro_torch.kernels.gmm import STAGES as GMM_STAGES
 from repro_torch.kernels.gmm import _bind as gmm_bind
 from repro_torch.kernels.gmm import gmm_plain
@@ -316,6 +323,77 @@ def test_flash_attention_fwd_source_matches_plain(emulated, causal, dtype):
               got_lse.data_ptr(), B, H, Kv, 96, 96, D, 1, 0, 1.0, None) == -1
 
 
+def _bf16_steps(a, b):
+    """Per element, |a - b| in units of the bfloat16 spacing at b (as
+    ``chip_smoke.py`` counts them)."""
+    b = b.float()
+    _, exp = torch.frexp(b)
+    step = torch.ldexp(torch.ones_like(b), exp - 8).clamp_min(2.0 ** -133)
+    return (a.float() - b).abs() / step
+
+
+@pytest.mark.parametrize("group", [8, 1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [128, 112, 64])
+def test_flash_tensor_core_model_matches_plain(emulated, D, causal, group):
+    """The bfloat16 launcher's host model of the tensor-core kernel at Sq =
+    Sk = 192, a multiple of 64 but not of 128: the second query block runs
+    past Sq (zero-filled rows, stores masked) and the second key tile past
+    Sk (zero-filled keys, masked to -inf); D 112 and 64 zero-fill the head
+    dim to 128. Two batch rows of 8 query heads over 1 (GQA group 8) or 8
+    key/value heads. Every output written (the buffers start NaN); out
+    within one bf16 ulp of the largest value and at most 1e-3 of the
+    elements more than one bf16 step from the plain version (the card's
+    share bound, which p rounded once to bf16 fails), at most 1e-3 of them
+    differing at all (measured at most 3.4e-4; p as two bf16 terms instead
+    of three puts 1.9e-3 to 2.3e-3 there), lse within 2e-6."""
+    B, H, S = 2, 8, 192
+    Kv = H // group
+    rng = np.random.default_rng(11 + D + group + int(causal))
+    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16)
+               for shape in ((B, H, S, D), (B, Kv, S, D), (B, Kv, S, D)))
+    want_o, want_lse = flash_attention_fwd_plain(q, k, v, causal)
+    got_o = torch.full_like(q, float("nan"))
+    got_lse = torch.full((B, H, S), float("nan"))
+    lib = flash_bind(emulated["flash_attention_fwd"])
+    assert lib.flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), got_o.data_ptr(),
+        got_lse.data_ptr(), B, H, Kv, S, S, D, int(causal), 1, scale_of(D),
+        None) == 0
+    assert _rel(got_lse, want_lse) <= 2e-6
+    assert _rel(got_o, want_o) <= 2.0 ** -7
+    steps = _bf16_steps(got_o, want_o)
+    assert float((steps > 1).float().mean()) <= 1e-3
+    assert float((steps > 0).float().mean()) <= 1e-3
+
+
+def test_flash_tensor_core_contract_and_plan(emulated):
+    """The bfloat16 launcher takes D a multiple of 8 in [8, 128], Sq and Sk
+    multiples of 64 and H a multiple of Kv, and refuses the rest with -1
+    before it reads anything; the shared memory it asks for is
+    ``tc_smem_plan``'s, with the stages ``kernels/flash_attention.py``
+    states, within the 232,448 bytes a block may use."""
+    lib = flash_bind(emulated["flash_attention_fwd"])
+    for B, H, Kv, Sq, Sk, D in ((1, 4, 2, 96, 128, 64),
+                                (1, 4, 2, 128, 160, 64),
+                                (1, 4, 3, 128, 128, 64),
+                                (1, 4, 0, 128, 128, 64),
+                                (1, 4, 2, 128, 128, 136),
+                                (1, 4, 2, 128, 128, 60),
+                                (1, 4, 2, 128, 128, 0),
+                                (0, 4, 2, 128, 128, 64),
+                                (1, 4, 2, 0, 128, 64),
+                                (1, 4, 2, 128, 0, 64)):
+        assert lib.flash_attention_fwd_launch(
+            None, None, None, None, None, B, H, Kv, Sq, Sk, D, 1, 1, 1.0,
+            None) == -1
+    assert lib.flash_attention_fwd_tc_stages() == TC_STAGES
+    for stages in (2, 3):
+        assert lib.flash_attention_fwd_tc_smem_bytes(stages) == \
+            tc_smem_plan(stages)["total"]
+    assert tc_smem_plan()["total"] == 230_440 <= 232_448
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bwd_source_matches_plain(emulated, causal, dtype):
@@ -493,3 +571,4 @@ def test_the_emulation_covers_every_source():
                                "flash_attention_bwd", "flash_attention_fwd",
                                "gmm", "ssd_scan", "wkv6_scan"]
     assert pathlib.Path(build.CSRC / "ddpg_update.cuh").exists()
+    assert pathlib.Path(build.CSRC / "tma_wgmma.cuh").exists()
