@@ -11,7 +11,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
   2. build        every CUDA source of ``src/repro_torch/kernels/csrc``
                   compiled (one ``nvcc`` per source, all started together);
                   the tensor-core kernels (``gmm_tc_kernel``,
-                  ``flash_fwd_tc_kernel``) read from their libraries by
+                  ``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``,
+                  ``flash_dkv_tc_kernel``) read from their libraries by
                   ``cuobjdump``: registers, stack and local bytes (held: 0,
                   so no spills) and the count of ``HGMMA`` instructions in
                   each kernel's own SASS (held: not 0), beside its
@@ -79,12 +80,21 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
   9. check_flash_bwd the flash backward kernels (``flash_attention_dq``;
                   ``flash_attention_dkv``) against their plain version on
                   the same numpy inputs (out and lse from the forward's plain
-                  version): bfloat16 at the training shape of
-                  phi4-mini-3.8b (B 2, S 2048, 24 query over 8 key/value
-                  heads, D 128, causal), float32 at B 2, S 256, 8 over 2
+                  version): bfloat16 (the tensor-core kernels
+                  ``flash_dq_tc_kernel`` and ``flash_dkv_tc_kernel``: s and
+                  dp on the CUDA cores in the plain version's float32
+                  order, dv, dk and dq by ``wgmma`` from p and ds as three
+                  bf16 terms) at the training shape of phi4-mini-3.8b (B 2,
+                  S 2048, 24 query over 8 key/value heads, D 128, causal),
+                  at B 2, S 256, 8 over 2 heads, D 64, causal and not, and
+                  at B 1, S 192, 6 over 2 heads, D 112, causal (the 128-row
+                  blocks run past Sq and Sk, the head dim is zero-filled);
+                  float32 (the CUDA-core kernels) at B 2, S 256, 8 over 2
                   heads, D 64, causal and not; dq, dk, dv held within
                   ``FLASH_BWD_*``, two launches bitwise equal, and the
-                  kernels' shared memory equal to ``bwd_smem_plan``;
+                  kernels' shared memory equal to ``bwd_smem_plan`` (the
+                  tensor-core kernels' with the stages ``BWD_TC_STAGES``
+                  states);
  10. train        the training path, ``Trainer`` over
                   ``make_train_step`` on phi4-mini-3.8b at its published
                   size in bfloat16 (random weights from a seeded
@@ -93,14 +103,18 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   ``remat="full"``; ``TokenPipeline`` batches of 2 x 2048
                   tokens): 4 steps, each launching the flash forward exactly
                   64 times (the forward and the remat recompute, 32 layers
-                  each) and dq and dk/dv 32 times each, with a finite loss
+                  each) and dq and dk/dv 32 times each (the bf16
+                  tensor-core kernels), with a finite loss
                   and grad_norm and parameters that moved; wall time,
                   tokens/s and peak memory per step. Then one more step with
                   the backward kernels held against their plain version on
                   each of the 32 layers' own (q, k, v, out, lse, dout), and
                   the loss and grad_norm of one batch through the kernels
                   and through their plain versions (reported, not held:
-                  random weights at this depth amplify rounding);
+                  random weights at this depth amplify rounding); last, the
+                  same comparison of the backward on each layer of the
+                  second step of a fresh run from the seed, reported, not
+                  held (``second_step_layers``);
  11. check_gmm    the ``gmm`` kernel against its plain version on the same
                   numpy inputs: bfloat16 (the tensor-core kernel) at
                   deepseek-moe-16b's two serving products (E 64, C 1920, D
@@ -178,8 +192,10 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   deepseek-moe-16b beside PyTorch's
                   ``scaled_dot_product_attention`` on the same tensors (with
                   its TFLOP/s, its share of the bound and its ratio to
-                  SDPA), the flash forward, dq and dk/dv at the training
-                  shape beside SDPA's forward and backward, ``gmm`` at the
+                  SDPA), the flash forward, dq and dk/dv (the tensor-core
+                  kernels) at the training shape beside SDPA's forward and
+                  backward, with their TFLOP/s, share of the bound and ratio
+                  to SDPA's backward, ``gmm`` at the
                   two MoE serving shapes beside ``torch.bmm`` (with its
                   TFLOP/s, its share of the bound and its ratio to
                   ``torch.bmm``),
@@ -309,10 +325,15 @@ FLASH_BWD_F32_RTOL = 1e-5
 FLASH_BWD_BF16_RTOL = 2.0 ** -8
 FLASH_BWD_BF16_OFF_SHARE = 1e-3
 #: (dtype, (B, S, H, Kv, D), causal): the training shape of phi4-mini-3.8b
-#: in bf16, then a small float32 GQA shape both ways
+#: in bf16, then a small float32 GQA shape both ways, then the same small
+#: shape in bf16 both ways and a bf16 shape whose 128-row blocks run past
+#: Sq and Sk (S 192) with the head dim zero-filled (D 112)
 FLASH_BWD_CASES = (("bfloat16", (2, 2048, 24, 8, 128), True),
                    ("float32", (2, 256, 8, 2, 64), True),
-                   ("float32", (2, 256, 8, 2, 64), False))
+                   ("float32", (2, 256, 8, 2, 64), False),
+                   ("bfloat16", (2, 256, 8, 2, 64), True),
+                   ("bfloat16", (2, 256, 8, 2, 64), False),
+                   ("bfloat16", (1, 192, 6, 2, 112), True))
 #: the training run: phi4-mini-3.8b at its published size, a batch of 2
 #: sequences of 2048 tokens, 4 steps of AdamW through the Trainer
 TRAIN_ARCH = "phi4-mini-3.8b"
@@ -1361,10 +1382,14 @@ def phase_check_flash_bwd() -> dict:
     plan = fa.check_bwd_smem_fit(128)
     lib = fa.bind_bwd(fa.build.load("flash_attention_bwd"))
     for which, name in ((0, "dq"), (1, "dkv")):
-        if lib.flash_attention_bwd_smem_bytes(128, which) != \
-                plan[name]["total"]:
-            raise AssertionError(f"{name}: the kernel's shared memory and "
-                                 f"bwd_smem_plan disagree")
+        sizes = (lib.flash_attention_bwd_smem_bytes(128, which),
+                 lib.flash_attention_bwd_tc_smem_bytes(
+                     which, fa.BWD_TC_STAGES[name]))
+        if sizes != (plan[name]["total"], plan[f"{name}_tc"]["total"]) or \
+                lib.flash_attention_bwd_tc_stages(which) != \
+                fa.BWD_TC_STAGES[name]:
+            raise AssertionError(f"{name}: the kernels' shared memory or "
+                                 f"stages and bwd_smem_plan disagree")
     before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
     errs = {"bfloat16": [], "float32": []}
     for i, (dtype, shape, causal) in enumerate(FLASH_BWD_CASES):
@@ -1492,15 +1517,6 @@ def phase_train() -> dict:
 
     # one more step, the backward kernels held against their plain version
     # on each layer's own (q, k, v, out, lse, dout)
-    kernel_bwd = ops.flash_attention_bwd
-    layer_errs = []
-
-    def checked_bwd(q, k, v, o, lse, dout, causal=True):
-        got = kernel_bwd(q, k, v, o, lse, dout, causal)
-        layer_errs.append(flash_bwd_errors(
-            got, fa.flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)))
-        return got
-
     def routed(fwd, bwd, fn):
         saved = ops.flash_attention_fwd, ops.flash_attention_bwd
         ops.flash_attention_fwd, ops.flash_attention_bwd = fwd, bwd
@@ -1511,12 +1527,11 @@ def phase_train() -> dict:
 
     held_launches = [c.launches for c in counters]
     batch = to_batch(pipeline.batch(TRAIN_STEPS))
-    _, _, held_metrics = routed(ops.flash_attention_fwd, checked_bwd,
-                                lambda: step_fn(params, opt_state, batch))
+    held_metrics, layer_errs = checked_step(step_fn, params, opt_state, batch)
     if len(layer_errs) != L:
         raise AssertionError(f"train: {len(layer_errs)} checked layers")
     for i, err in enumerate(layer_errs):
-        hold_flash_bwd(err, "bfloat16", f"(train, layer {i})")
+        hold_flash_bwd(err, "bfloat16", f"(train, layer {L - 1 - i})")
 
     # the loss and gradient norm of one batch through the kernels and
     # through their plain versions, from the same parameters: reported
@@ -1553,16 +1568,82 @@ def phase_train() -> dict:
                          "layers_held": worst_of(layer_errs,
                                                  FLASH_BWD_ERROR_KEYS),
                          "bounds": flash_bwd_bounds("bfloat16")},
+           "second_step_layers": None,
            "vs_plain_versions": {
                "kernel_loss": kernel_loss, "plain_loss": plain_loss,
                "loss_abs_gap": abs(kernel_loss - plain_loss),
                "kernel_grad_norm": kernel_norm, "plain_grad_norm": plain_norm,
                "grad_norm_rel_gap": abs(kernel_norm - plain_norm)
                / max(abs(plain_norm), 1e-30)}}
-    emit(row)
-    del params, opt_state, trainer, step_fn
+    del params, opt_state, trainer, step_fn, batch
     torch.cuda.empty_cache()
+    row["second_step_layers"] = second_step_layers(cfg, tx, tc, pipeline)
+    emit(row)
     return row
+
+
+def checked_step(step_fn, params, opt_state, batch) -> tuple:
+    """One training step with the backward kernels compared with their
+    plain version on each layer's own (q, k, v, out, lse, dout): the step's
+    metrics (its new parameters and optimizer state are dropped) and each
+    layer's ``flash_bwd_errors``, the last layer first."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    kernel_bwd = ops.flash_attention_bwd
+    errs = []
+
+    def checked_bwd(q, k, v, o, lse, dout, causal=True):
+        got = kernel_bwd(q, k, v, o, lse, dout, causal)
+        errs.append(flash_bwd_errors(
+            got, fa.flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)))
+        return got
+
+    ops.flash_attention_bwd = checked_bwd
+    try:
+        metrics = step_fn(params, opt_state, batch)[2]
+    finally:
+        ops.flash_attention_bwd = kernel_bwd
+    return metrics, errs
+
+
+def second_step_layers(cfg, tx, tc, pipeline) -> dict:
+    """``checked_step`` on the second step of a fresh run from
+    ``TRAIN_SEED`` (the Trainer's second step): reported, not held. On
+    these inputs the kernels miss the 2^-8 bound on 2 of the 32 layers
+    where the parent's CUDA-core kernels held (ROADMAP Queue C), so the
+    worst errors and each layer over a ``FLASH_BWD_BF16_*`` bound are
+    printed for the decision on what random-weight layers are held to."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params, model_defs
+    from repro_torch.training import make_train_step
+
+    counters = (fa.flash_attention_fwd, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    saved = [c.launches for c in counters]
+    params = init_params(model_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(TRAIN_SEED), "cuda")
+    opt_state = tx.init(params)
+    step_fn = make_train_step(cfg, tx, tc)
+    batches = [{key: torch.as_tensor(x, device="cuda")
+                for key, x in pipeline.batch(i).items()} for i in (0, 1)]
+    params, opt_state, _ = step_fn(params, opt_state, batches[0])
+    _, errs = checked_step(step_fn, params, opt_state, batches[1])
+    for c, n in zip(counters, saved):
+        c.launches = n  # not the main path's
+    del params, opt_state, step_fn, batches
+    torch.cuda.empty_cache()
+    bounds = flash_bwd_bounds("bfloat16")
+    over = {cfg.num_layers - 1 - i: {f"{g}_{key}": err[f"{g}_{key}"]
+                                     for g in ("dq", "dk", "dv")
+                                     for key in bounds}
+            for i, err in enumerate(errs)
+            if any(err[f"{g}_{key}"] > bound for g in ("dq", "dk", "dv")
+                   for key, bound in bounds.items())}
+    return {"layers": len(errs), "worst": worst_of(errs, FLASH_BWD_ERROR_KEYS),
+            "layers_over_bounds": over}
 
 
 def gmm_inputs(shape, dtype, seed: int):
@@ -2561,7 +2642,7 @@ def phase_profile() -> None:
                   "device_busy_share": device_ms / wall_ms,
                   "flash_ms_per_call": sum(
                       e.self_device_time_total for e in kernels
-                      if "flash_fwd_kernel" in e.key) / 1e3 / calls,
+                      if "flash_fwd" in e.key) / 1e3 / calls,
                   "kernel_launches_per_call": sum(e.count for e in kernels)
                   / calls,
                   "top_kernels": [[e.key[:70], e.self_device_time_total
@@ -2608,8 +2689,8 @@ def phase_profile_train() -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    groups = {"flash_fwd_kernel": 0.0, "flash_dq_kernel": 0.0,
-              "flash_dkv_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+              "gemm": 0.0, "other": 0.0}
     for e in kernels:
         name = next((g for g in groups if g in e.key), None)
         if name is None:
@@ -2928,9 +3009,12 @@ def main() -> int:
         print(f"[{name}] nvcc -Xptxas -v:\n{entry['ptxas']}", file=sys.stderr)
     gmm_build = tc_build(log, "gmm", "gmm_tc_kernel")
     flash_build = tc_build(log, "flash_attention_fwd", "flash_fwd_tc_kernel")
+    bwd_build = {kernel: tc_build(log, "flash_attention_bwd", kernel)
+                 for kernel in ("flash_dq_tc_kernel", "flash_dkv_tc_kernel")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in log.items()},
-          "gmm_tc_kernel": gmm_build, "flash_fwd_tc_kernel": flash_build})
+          "gmm_tc_kernel": gmm_build, "flash_fwd_tc_kernel": flash_build,
+          **bwd_build})
 
     if sys.argv[1:] == ["--drift"]:
         phase_drift()
@@ -3056,11 +3140,14 @@ def main() -> int:
            "library_ms": train_rows[name]["library_ms"],
            "library_call": train_rows[name]["library_call"],
            "shape_BSHKvD": train_rows[name]["shape_BSHKvD"],
-           "dtype": "bfloat16", "ok": True}
-          for name, replaces, index, grads in (
-              ("flash_attention_dq", "src/repro/kernels/flash_attention.py:124",
-               1, ("dq",)),
-              ("flash_attention_dkv",
+           "dtype": "bfloat16", "tflops": train_rows[name]["tflops"],
+           "bound_share": train_rows[name]["bound_share"],
+           "vs_library": train_rows[name]["vs_library"],
+           "tc_kernel": bwd_build[kernel], "ok": True}
+          for name, kernel, replaces, index, grads in (
+              ("flash_attention_dq", "flash_dq_tc_kernel",
+               "src/repro/kernels/flash_attention.py:124", 1, ("dq",)),
+              ("flash_attention_dkv", "flash_dkv_tc_kernel",
                "src/repro/kernels/flash_attention.py:160", 2,
                ("dk", "dv")))), {
         "name": "gmm", "route": "cuda",

@@ -118,9 +118,10 @@
 // exchange into the fragment, softmax steps, three-term split of p,
 // accumulator-to-A-fragment packing, descriptors and epilogue, with TMA's
 // zero fill and the 128-byte swizzle written out (tma_wgmma.cuh, shared
-// with gmm.cu) and each product read through its descriptors. It cannot
-// show the PTX, the barriers, the fragment layout on the card or the
-// tensor cores' own order of sums; the card's checks do.
+// with gmm.cu and flash_attention_bwd.cu) and each product read through
+// its descriptors. It cannot show the PTX, the barriers, the fragment
+// layout on the card or the tensor cores' own order of sums; the card's
+// checks do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -538,64 +539,21 @@ __host__ __device__ inline void add_tile(float (&o)[kFrag],
   for (int i = 0; i < kFrag; ++i) o[i] = fmaf(o[i], alpha[(i / 2) % 2], pv[i]);
 }
 
-__host__ __device__ inline float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// two floats as a bf16 pair in one register, a in the low half
-__host__ __device__ inline std::uint32_t pack_bf16(float a, float b) {
-#ifdef __CUDACC__
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const std::uint32_t*>(&h);
-#else
-  const __nv_bfloat16 x = __float2bfloat16_rn(a), y = __float2bfloat16_rn(b);
-  std::uint16_t lo, hi;
-  std::memcpy(&lo, &x, 2);
-  std::memcpy(&hi, &y, 2);
-  return lo | (std::uint32_t)hi << 16;
-#endif
-}
-
-// the low (h 0) or high (h 1) bf16 of a register as a float
-__host__ __device__ inline float half_of(std::uint32_t reg, int h) {
-#ifdef __CUDA_ARCH__
-  return __uint_as_float(h ? reg & 0xFFFF0000u : reg << 16);
-#else
-  const std::uint32_t bits = h ? reg & 0xFFFF0000u : reg << 16;
-  float x;
-  std::memcpy(&x, &bits, 4);
-  return x;
-#endif
-}
-
 // p of part `part` of a tile (key slices kPartSlices part ..) as kPTerms
-// bf16 terms, each the rounding of what the terms before it left (p_hi =
-// bf16(p), p_mid = bf16(p - p_hi), p_lo = bf16(p - p_hi - p_mid)): three
-// terms of 8 bits hold the 24 of a float32 p exactly, so the products see
-// p itself (two terms put an output of zamba2-7b's attentions over the
-// bound). Packed pair by pair: register j of a term holds p[2 kPartRegs
-// part + 2j] and the next. For a 16-bit A operand the accumulator
-// registers 8 kk .. 8 kk + 7 are, pair by pair, the A fragment of key
-// slice kk: registers 4 (kk - kPartSlices part) .. + 3 of each term. A
-// part of a tile at a time, so that the terms, O and the tile's P V fit
-// the registers together.
+// bf16 terms (split_terms: p_hi = bf16(p), p_mid = bf16(p - p_hi), p_lo =
+// bf16(p - p_hi - p_mid)), which hold a float32 p exactly, so the products
+// see p itself (two terms put an output of zamba2-7b's attentions over the
+// bound). Register j of a term holds p[2 kPartRegs part + 2j] and the next;
+// registers 4 (kk - kPartSlices part) .. + 3 of each term are the A
+// fragment of key slice kk. A part of a tile at a time, so that the terms,
+// O and the tile's P V fit the registers together.
 constexpr int kPvParts = 2;
 constexpr int kPartSlices = kKeySlices / kPvParts;
 constexpr int kPartRegs = kFrag / 2 / kPvParts;
 __host__ __device__ inline void split_p(
     const float (&p)[kFrag], int part,
     std::uint32_t (&terms)[kPTerms][kPartRegs]) {
-#pragma unroll
-  for (int j = 0; j < kPartRegs; ++j) {
-    float a = p[2 * kPartRegs * part + 2 * j],
-          b = p[2 * kPartRegs * part + 2 * j + 1];
-#pragma unroll
-    for (int u = 0; u < kPTerms; ++u) {
-      terms[u][j] = pack_bf16(a, b);
-      a -= bf16_round(a);
-      b -= bf16_round(b);
-    }
-  }
+  split_terms(p, 2 * kPartRegs * part, terms);
 }
 
 // Thread t's part of out and lse: out = O / max(l, 1e-30) as bf16 pairs
@@ -637,46 +595,6 @@ MapSpec map_spec(int map, const Dims& P) {
 
 #ifdef __CUDACC__
 
-// d += A V, one m64n128k16 with A (a slice of p as bf16 pairs) from
-// registers and V MN-major in shared memory (transpose-B 1).
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    std::uint32_t a0,
-                                                    std::uint32_t a1,
-                                                    std::uint32_t a2,
-                                                    std::uint32_t a3,
-                                                    std::uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n\t}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1),
-        "n"(kPvTransB));
-}
-
 // pv += P V of part `part` of a tile, one m64n128k16 per key slice and
 // term of p, A from the term's registers.
 __device__ __forceinline__ void pv_products(
@@ -687,8 +605,10 @@ __device__ __forceinline__ void pv_products(
     const std::uint64_t dv = v_desc(stage, kPartSlices * part + kk);
 #pragma unroll
     for (int u = 0; u < kPTerms; ++u)
-      wgmma_m64n128k16_rs(pv, terms[u][4 * kk], terms[u][4 * kk + 1],
-                          terms[u][4 * kk + 2], terms[u][4 * kk + 3], dv);
+      wgmma_m64n128k16_rs<kPvTransB>(pv, terms[u][4 * kk],
+                                     terms[u][4 * kk + 1],
+                                     terms[u][4 * kk + 2],
+                                     terms[u][4 * kk + 3], dv);
   }
 }
 
@@ -738,15 +658,6 @@ __device__ __forceinline__ void scores(float (&s)[8][8], const float* qs,
           s[i][j] = fmaf(a[i][dd], kd[dd], s[i][j]);
     }
   }
-}
-
-// blockIdx.x, read anew: the consumers work the block's key tiles and head
-// row out again where they need them rather than keep them in registers
-// through the loop (ptxas spilled them)
-__device__ __forceinline__ int block_index() {
-  int x;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(x));
-  return x;
 }
 
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -948,30 +859,6 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 
 #else  // the host model of flash_fwd_tc_kernel
 
-// The A operand of a wgmma m64k16 from registers (16-bit types, PTX ISA):
-// thread t's register r holds row a_row(t, r) and columns a_col(t, r, 0)
-// (low half) and a_col(t, r, 1) (high half) of the slice.
-constexpr int a_row(int t, int r) {
-  return 16 * (t / 32) + (t % 32) / 4 + 8 * (r % 2);
-}
-constexpr int a_col(int t, int r, int h) {
-  return 2 * (t % 4) + 8 * (r / 2) + h;
-}
-
-// One m64n128k16 into acc[64][128] in k order: A the matrix a, B through
-// its descriptor.
-void model_mma(SmemModel& model, const float (*a)[kMmaK], std::uint64_t db,
-               int trans_b, float (*acc)[kTcKeys]) {
-  float B[kMmaK * kTcKeys];
-  if (!model.read_b(db, trans_b, kTcKeys, B)) return;
-  for (int r = 0; r < kMmaM; ++r)
-    for (int n = 0; n < kTcKeys; ++n) {
-      float s = acc[r][n];
-      for (int k = 0; k < kMmaK; ++k) s += a[r][k] * B[k * kTcKeys + n];
-      acc[r][n] = s;
-    }
-}
-
 // A warpgroup's state: the O tile and each thread's m and partial l.
 struct WgState {
   float O[kWgRows][kMaxD];
@@ -991,7 +878,6 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   std::vector<WgState> wgs(kConsumers);
   std::vector<float> qsf(kQsBytes / 4), xbuf(kXBytes / 4),
       PV(kWgRows * kTcKeys);
-  float (*PVm)[kTcKeys] = reinterpret_cast<float(*)[kTcKeys]>(PV.data());
   float sc[128][kFrag], mx[128][2], alpha[128][2];
   std::uint32_t terms[128][kPTerms][kPartRegs];
   for (int index = 0; index < P.B * P.H * cdiv(P.Sq, kTcQ); ++index) {
@@ -1055,15 +941,15 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
                   for (int h = 0; h < 2; ++h)
                     A[a_row(t, r)][a_col(t, r, h)] =
                         half_of(terms[t][u][4 * kk + r], h);
-              model_mma(model, A, v_desc(stage, kPartSlices * part + kk),
-                        kPvTransB, PVm);
+              model_wgmma(model, A, v_desc(stage, kPartSlices * part + kk),
+                          kPvTransB, kTcKeys, PV.data());
             }
         }
         for (int t = 0; t < 128; ++t) {
           float ot[kFrag], pv[kFrag];
           for (int i = 0; i < kFrag; ++i) {
             ot[i] = w.O[frag_row(t, i)][frag_col(t, i)];
-            pv[i] = PVm[frag_row(t, i)][frag_col(t, i)];
+            pv[i] = PV[frag_row(t, i) * kTcKeys + frag_col(t, i)];
           }
           add_tile(ot, alpha[t], pv);
           for (int i = 0; i < kFrag; ++i)

@@ -1,21 +1,25 @@
 // Parts shared by the port's tensor-core kernels for Hopper (sm_90a):
-// gmm.cu (gmm_tc_kernel) and flash_attention_fwd.cu (flash_fwd_tc_kernel).
+// gmm.cu (gmm_tc_kernel), flash_attention_fwd.cu (flash_fwd_tc_kernel) and
+// flash_attention_bwd.cu (flash_dq_tc_kernel, flash_dkv_tc_kernel).
 //
-// Both stage bf16 tiles in shared memory with TMA, as boxes whose rows are
+// All stage bf16 tiles in shared memory with TMA, as boxes whose rows are
 // 128 bytes (64 bf16) wide in the 128-byte swizzle, and multiply them with
 // wgmma.mma_async (f32 += bf16 x bf16) reading the operands through
 // shared-memory matrix descriptors. What lives here:
 //   - for both compilers: the descriptor builder, the accumulator fragment
-//     layout, the 128-byte swizzle, a bf16 pair store, the tensor map's
-//     shape (MapSpec);
+//     layout and the A fragment of a 16-bit operand in registers, the
+//     128-byte swizzle, bf16 packing and a bf16 pair store, the split of a
+//     float32 fragment into bf16 terms, the tensor map's shape (MapSpec);
 //   - with nvcc: mbarriers, the 3-D TMA load, the m64n128k16 product with
-//     both operands in shared memory, and cuTensorMapEncodeTiled found
-//     through cudaGetDriverEntryPoint (no -lcuda);
+//     both operands in shared memory and with A from registers, and
+//     cuTensorMapEncodeTiled found through cudaGetDriverEntryPoint (no
+//     -lcuda);
 //   - without nvcc (the CPU emulation in the tests): SmemModel, which lays
 //     TMA boxes into a byte array with the zero fill and the swizzle
 //     written out, and reads each wgmma operand through its descriptor as
-//     the tensor cores address the swizzled layouts. It cannot show the
-//     PTX, the barriers or the tensor cores' own order of sums.
+//     the tensor cores address the swizzled layouts, and model_wgmma, one
+//     product in k order. They cannot show the PTX, the barriers or the
+//     tensor cores' own order of sums.
 
 #pragma once
 
@@ -24,10 +28,11 @@
 
 #include <cstdint>
 
+#include <cstring>
+
 #ifdef __CUDACC__
 #include <cuda.h>
 #else
-#include <cstring>
 #include <vector>
 #endif
 
@@ -67,6 +72,69 @@ __host__ __device__ inline void store_pair(__nv_bfloat16* p, float a,
   p[0] = __float2bfloat16_rn(a);
   p[1] = __float2bfloat16_rn(b);
 #endif
+}
+
+__host__ __device__ inline float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// two floats as a bf16 pair in one register, a in the low half
+__host__ __device__ inline std::uint32_t pack_bf16(float a, float b) {
+#ifdef __CUDACC__
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const std::uint32_t*>(&h);
+#else
+  const __nv_bfloat16 x = __float2bfloat16_rn(a), y = __float2bfloat16_rn(b);
+  std::uint16_t lo, hi;
+  std::memcpy(&lo, &x, 2);
+  std::memcpy(&hi, &y, 2);
+  return lo | (std::uint32_t)hi << 16;
+#endif
+}
+
+// the low (h 0) or high (h 1) bf16 of a register as a float
+__host__ __device__ inline float half_of(std::uint32_t reg, int h) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(h ? reg & 0xFFFF0000u : reg << 16);
+#else
+  const std::uint32_t bits = h ? reg & 0xFFFF0000u : reg << 16;
+  float x;
+  std::memcpy(&x, &bits, 4);
+  return x;
+#endif
+}
+
+// The A operand of a wgmma m64k16 from registers (16-bit types, PTX ISA):
+// thread t's register r holds row a_row(t, r) and columns a_col(t, r, 0)
+// (low half) and a_col(t, r, 1) (high half) of the slice. For such an A,
+// the accumulator registers 8 kk .. 8 kk + 7 of an m64nN fragment are, pair
+// by pair, the A fragment of its columns 16 kk .. 16 kk + 15.
+__host__ __device__ constexpr int a_row(int t, int r) {
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * (r % 2);
+}
+__host__ __device__ constexpr int a_col(int t, int r, int h) {
+  return 2 * (t % 4) + 8 * (r / 2) + h;
+}
+
+// x[first ..] of a fragment as T bf16 terms of R registers, each the
+// rounding of what the terms before it left (x_hi = bf16(x), x_mid =
+// bf16(x - x_hi), x_lo = ...): three terms of 8 bits hold the 24 of a
+// float32 exactly. Packed pair by pair: register j of a term holds
+// x[first + 2j] and the next, so that registers 4 s .. 4 s + 3 are the A
+// fragment of the s-th 16 columns from first on.
+template <int T, int R>
+__host__ __device__ inline void split_terms(const float* x, int first,
+                                            std::uint32_t (&terms)[T][R]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    float a = x[first + 2 * j], b = x[first + 2 * j + 1];
+#pragma unroll
+    for (int u = 0; u < T; ++u) {
+      terms[u][j] = pack_bf16(a, b);
+      a -= bf16_round(a);
+      b -= bf16_round(b);
+    }
+  }
 }
 
 // The 128-byte swizzle on a shared-memory byte address (or an offset from
@@ -186,6 +254,56 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TransB));
+}
+
+// d += A B, one m64n128k16 with A (16 columns of bf16 pairs, a_row /
+// a_col) from registers and B in shared memory, K-major (TransB 0) or
+// MN-major (TransB 1).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    std::uint32_t a0,
+                                                    std::uint32_t a1,
+                                                    std::uint32_t a2,
+                                                    std::uint32_t a3,
+                                                    std::uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TransB));
+}
+
+// blockIdx.x, read anew: a consumer works its block's coordinates out again
+// where it needs them rather than keep them in registers through its loop
+// (ptxas spilled them)
+__device__ __forceinline__ int block_index() {
+  int x;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(x));
+  return x;
 }
 
 // cuTensorMapEncodeTiled, from the CUDA driver API through the runtime
@@ -317,6 +435,20 @@ struct SmemModel {
     return ok;
   }
 };
+
+// One m64nNk16 into acc[64][n] (row major) in k order: A the matrix a, B
+// read through its descriptor.
+inline void model_wgmma(SmemModel& model, const float (*a)[kMmaK],
+                        std::uint64_t db, int trans_b, int n, float* acc) {
+  std::vector<float> B(kMmaK * n);
+  if (!model.read_b(db, trans_b, n, B.data())) return;
+  for (int r = 0; r < kMmaM; ++r)
+    for (int c = 0; c < n; ++c) {
+      float s = acc[r * n + c];
+      for (int k = 0; k < kMmaK; ++k) s += a[r][k] * B[k * n + c];
+      acc[r * n + c] = s;
+    }
+}
 
 #endif  // __CUDACC__
 

@@ -30,11 +30,27 @@ card.
 
 ``flash_attention_bwd`` computes ``delta = rowsum(dout * out)`` in plain
 PyTorch, as the JAX package does outside its kernels, then launches the two
-kernels of ``csrc/flash_attention_bwd.cu``: ``flash_attention_dq`` (one
-block per batch row, query head and 64 queries; replaces ``_dq_kernel``,
-``flash_attention.py:124``) and ``flash_attention_dkv`` (one block per batch
-row, key/value head and 64 keys, looping over the group's query heads;
-replaces ``_dkv_kernel``, ``flash_attention.py:160``).
+kernels of ``csrc/flash_attention_bwd.cu``: ``flash_attention_dq`` (replaces
+``_dq_kernel``, ``flash_attention.py:124``) and ``flash_attention_dkv``
+(dk and dv, looping over the GQA group's query heads; replaces
+``_dkv_kernel``, ``flash_attention.py:160``). Which dtype takes which
+kernels:
+
+- **bfloat16** (what training runs): ``flash_dq_tc_kernel`` (one block per
+  batch row, query head and 128 queries; k and v tiles of 64 keys through a
+  TMA ring of ``BWD_TC_STAGES["dq"]`` stages) and ``flash_dkv_tc_kernel``
+  (one block per batch row, key/value head and 128 keys; q and do tiles of
+  64 queries through ``BWD_TC_STAGES["dkv"]`` stages). Two consumer
+  warpgroups of 64 rows sum s and dp on the CUDA cores in this module's
+  plain version's own float32 order (on random-weight training layers
+  ``ds = p (dp - delta)`` cancels, so both must be its values bit for bit),
+  and run dv, dk and dq with ``wgmma.mma_async`` m64n128k16 on the tensor
+  cores, p and ds (times 2^24) from registers as three bf16 terms that
+  hold them exactly (``tests/test_torch_flash_bwd.py`` pins why).
+- **float32**: ``flash_dq_kernel`` and ``flash_dkv_kernel``, float32 FMAs
+  on the CUDA cores (blocks of 64 queries or keys). A tensor-core float32
+  product would be TF32, which the port never uses.
+
 ``flash_attention_bwd_plain`` is their plain version, in their op order.
 
 All take the kernel layout, q ``[B, H, Sq, D]`` and k, v ``[B, Kv, Sk, D]``
@@ -50,8 +66,9 @@ rate (989 TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger. The
 bf16 forward sums its 2 D operations per query-key pair for the scores on
 the float32 CUDA cores (67 TFLOP/s) and issues 6 D tensor operations for
 ``p v`` where ``work`` counts 2 D (the three terms of p are the precision
-plan's cost, not work); the backward kernels' products run on the float32
-CUDA cores.
+plan's cost, not work); the bf16 backward sums s and dp (4 D per pair of
+``work_bwd``'s 6 D and 8 D) on the CUDA cores and issues the rest as
+three-term tensor products.
 """
 
 from __future__ import annotations
@@ -253,15 +270,56 @@ def work(B: int, H: int, Kv: int, S: int, D: int, causal: bool,
 
 #: dynamic shared memory a block may use on the H100 (227 KB)
 SMEM_LIMIT = 232_448
-#: row stride (floats) of the backward's transposed tiles and p / ds tile
+#: row stride (floats) of the float32 backward's transposed tiles and p / ds
 SMEM_LD = 68
+#: the stages of the bf16 backward kernels' TMA rings
+BWD_TC_STAGES = {"dq": 2, "dkv": 2}
+
+
+def bwd_tc_smem_plan(stages: dict | None = None) -> dict:
+    """Bytes of dynamic shared memory one block of each bf16 (tensor-core)
+    backward kernel asks for, by part, in the order the parts lie
+    (``csrc/flash_attention_bwd.cu``, ``dq_tc_smem_bytes`` and
+    ``dkv_tc_smem_bytes``), with the ``total`` of each; ``stages`` maps
+    ``"dq"`` and ``"dkv"`` to their rings' stages (default
+    ``BWD_TC_STAGES``). Both kernels zero-fill the head dim to 128 and own
+    128 rows; a streamed tile has 64 rows. dq: slack to align to the
+    swizzle's 1,024-byte atom, q times the scale and do in float32, the
+    consumer warps' buffers for the exchange of s and dp (16 rows by 64
+    columns, float32, each), per stage a k and a v tile (bf16; the bf16 q
+    and do tiles land in the first two stages before the ring starts), a
+    full and an empty mbarrier per stage, the q and do tiles' and their
+    landing place's. dk/dv: the slack, the bf16 k and v tiles, the exchange
+    buffers, q times the scale and do of a query tile in float32, per stage
+    a q and a do tile (bf16), the tile's lse and delta, a full and an empty
+    mbarrier per stage and the k and v tiles'."""
+    stages = {**BWD_TC_STAGES, **(stages or {})}
+    rows, tile, d = 128, 64, MAX_HEAD_DIM
+    exchange = 8 * 16 * tile * 4
+    dq = {"alignment slack": 1024,
+          "q scale, do, float32": 2 * rows * d * 4,
+          "s and dp exchange": exchange,
+          "k, v tiles (first the q, do tiles)":
+              stages["dq"] * 2 * tile * d * 2,
+          "mbarriers": (2 * stages["dq"] + 2) * 8}
+    dkv = {"alignment slack": 1024,
+           "k, v tiles": 2 * rows * d * 2,
+           "s and dp exchange": exchange,
+           "q scale, do of a tile, float32": 2 * tile * d * 4,
+           "q, do tiles": stages["dkv"] * 2 * tile * d * 2,
+           "lse, delta of a tile": 2 * tile * 4,
+           "mbarriers": (2 * stages["dkv"] + 1) * 8}
+    return {name: {**parts, "total": sum(parts.values())}
+            for name, parts in (("dq", dq), ("dkv", dkv))}
 
 
 def bwd_smem_plan(D: int) -> dict:
     """Bytes of dynamic shared memory one block of each backward kernel uses
-    at head dim ``D``, by part, in the order the parts lie in shared memory
-    (``csrc/flash_attention_bwd.cu``, ``dq_smem_floats`` and
-    ``dkv_smem_floats``), with the ``total`` of each."""
+    at head dim ``D``, by part, with the ``total`` of each: the float32
+    kernels' (``"dq"``, ``"dkv"``; in the order the parts lie in shared
+    memory, ``csrc/flash_attention_bwd.cu``, ``dq_smem_floats`` and
+    ``dkv_smem_floats``) and the bf16 tensor-core kernels' (``"dq_tc"``,
+    ``"dkv_tc"``: ``bwd_tc_smem_plan``, the same at every D)."""
     transposed = 4 * D * SMEM_LD           # a [d][row] float32 tile
     rows = 4 * BLOCK_K * D                 # a [row][d] float32 tile
     square = 4 * BLOCK_Q * SMEM_LD         # the p / ds tile
@@ -273,8 +331,11 @@ def bwd_smem_plan(D: int) -> dict:
            "q_s then do transposed": transposed,
            "do then q_s / scale rows": rows, "dk, dv accumulators": 2 * rows,
            "p then ds": square, "lse, delta": stats}
-    return {name: {**parts, "total": sum(parts.values())}
+    plan = {name: {**parts, "total": sum(parts.values())}
             for name, parts in (("dq", dq), ("dkv", dkv))}
+    plan.update({f"{name}_tc": parts
+                 for name, parts in bwd_tc_smem_plan().items()})
+    return plan
 
 
 def check_bwd_smem_fit(D: int) -> dict:
@@ -314,8 +375,9 @@ def _check_bwd(q, k, v, out, lse, dout) -> tuple:
 
 def _check_bwd_kernel(q, k, v, dout, lse, delta) -> tuple:
     """What the backward kernels take: ``_check_kernel``, a contiguous
-    dout, float32 contiguous lse and delta, CUDA tensors, and a block that
-    fits in shared memory."""
+    dout, float32 contiguous lse and delta, CUDA tensors, a block that fits
+    in shared memory, and for bfloat16 (TMA) q, k, v, dout 16-byte
+    aligned."""
     _check_bwd(q, k, v, dout, lse, dout)       # dout and lse against q
     dims = _check_kernel(q, k, v)
     if tuple(delta.shape) != tuple(lse.shape) or \
@@ -330,13 +392,21 @@ def _check_bwd_kernel(q, k, v, dout, lse, delta) -> tuple:
         raise ValueError("the flash backward kernels take CUDA tensors; use "
                          "flash_attention_bwd_plain on the CPU")
     check_bwd_smem_fit(dims[-1])
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            if t.data_ptr() % TMA_ALIGN:
+                raise ValueError(f"{name} must start {TMA_ALIGN}-byte "
+                                 f"aligned (TMA), got {t.data_ptr():#x}")
     return dims
 
 
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of the backward library's
-    functions (the two launchers and ``flash_attention_bwd_smem_bytes(D,
-    which)``, which gives the bytes of one block, 0 = dq, 1 = dk/dv)."""
+    functions: the two launchers; ``flash_attention_bwd_smem_bytes(D,
+    which)``, the bytes of one float32 block (0 = dq, 1 = dk/dv);
+    ``flash_attention_bwd_tc_smem_bytes(which, stages)``, those of one
+    tensor-core block; ``flash_attention_bwd_tc_stages(which)``, the stages
+    each tensor-core kernel is built with."""
     for name, outputs in (("flash_attention_dq_launch", 1),
                           ("flash_attention_dkv_launch", 2)):
         fn = getattr(lib, name)
@@ -344,8 +414,11 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * (6 + outputs) + \
                 [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+    for name, args in (("flash_attention_bwd_smem_bytes", 2),
+                       ("flash_attention_bwd_tc_smem_bytes", 2),
+                       ("flash_attention_bwd_tc_stages", 1)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * args
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -366,9 +439,10 @@ def _launch_bwd(name: str, q, k, v, dout, lse, delta, outputs, dims,
 
 
 def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool = True):
-    """dq in ONE launch of ``flash_dq_kernel`` on the current stream, from
-    ``delta = rowsum(dout * out)`` (float32 ``[B, H, Sq]``). Raises on a
-    tensor the kernel does not take and on a refused launch.
+    """dq in ONE launch on the current stream (bfloat16:
+    ``flash_dq_tc_kernel``; float32: ``flash_dq_kernel``), from ``delta =
+    rowsum(dout * out)`` (float32 ``[B, H, Sq]``). Raises on a tensor the
+    kernel does not take and on a refused launch.
     ``flash_attention_dq.launches`` counts launches."""
     dims = _check_bwd_kernel(q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
@@ -382,9 +456,9 @@ flash_attention_dq.launches = 0
 
 
 def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool = True):
-    """``(dk, dv)`` in ONE launch of ``flash_dkv_kernel``; as
-    ``flash_attention_dq`` otherwise. ``flash_attention_dkv.launches``
-    counts launches."""
+    """``(dk, dv)`` in ONE launch (bfloat16: ``flash_dkv_tc_kernel``;
+    float32: ``flash_dkv_kernel``); as ``flash_attention_dq`` otherwise.
+    ``flash_attention_dkv.launches`` counts launches."""
     dims = _check_bwd_kernel(q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
@@ -403,9 +477,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     ``(dq, dk, dv)``. Raises on a tensor the kernels do not take (not on the
     card, another dtype, a head dim that is not a multiple of 8 in
     [8, 128], a sequence length that is not a multiple of 64, a
-    non-contiguous layout) and on a refused launch; it never runs the plain
-    version. ``flash_attention_bwd.launches`` counts calls (each launches
-    both kernels)."""
+    non-contiguous layout, a bfloat16 tensor not 16-byte aligned for TMA)
+    and on a refused launch; it never runs the plain version.
+    ``flash_attention_bwd.launches`` counts calls (each launches both
+    kernels). Range: the bfloat16 kernels sum p and ds times 2^24 (so that
+    their three bf16 terms are exact), so a gradient or partial sum above
+    2^128 / 2^24 ~ 2.0e31 overflows to inf, where the float32 plain
+    version reaches ~3.4e38."""
     _check_bwd(q, k, v, out, lse, dout)
     if not q.is_cuda:
         raise ValueError("flash_attention_bwd launches the CUDA kernels and "

@@ -18,7 +18,15 @@ dv):
 The CUDA kernels themselves run only on a card (the ``cuda`` test below,
 and ``chip_smoke.py``); their source runs on the CPU in
 ``tests/test_torch_kernel_emulation.py``.
+
+The bf16 kernels' precision plan (s and dp as the plain version sums them,
+p and ds into the tensor-core products as three bf16 terms that hold them
+exactly) is pinned here against the card's bounds; p and ds rounded once
+to bf16, and (on rows whose softmax is all but one-hot) dp summed exactly
+instead of in the plain version's float32 order, are shown to fail them.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +41,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import SMEM_LIMIT, bwd_smem_plan, \
     check_bwd_smem_fit, flash_attention_bwd, flash_attention_bwd_plain, \
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd_plain, \
-    work_bwd
+    scale_of, work_bwd
 
 # (B, S, H, Kv, D)
 SHAPES = [(1, 256, 4, 2, 32), (2, 256, 4, 1, 64)]
@@ -188,6 +196,106 @@ def test_the_kernel_wrappers_refuse_cpu_tensors():
     assert counts == (flash_attention_bwd.launches,
                       flash_attention_dq.launches,
                       flash_attention_dkv.launches)
+
+
+#: the card's bounds on the bf16 kernels against their plain version
+#: (``chip_smoke.py``: FLASH_BWD_BF16_RTOL, FLASH_BWD_BF16_OFF_SHARE)
+CARD_RTOL = 2.0 ** -8
+CARD_OFF_SHARE = 1e-3
+
+
+def _bf16_steps(a, b):
+    """Per element, |a - b| in units of the bfloat16 spacing at b (as
+    ``chip_smoke.py`` counts them)."""
+    b = b.float()
+    _, exp = torch.frexp(b)
+    step = torch.ldexp(torch.ones_like(b), exp - 8).clamp_min(2.0 ** -133)
+    return (a.float() - b).abs() / step
+
+
+def _split(x, terms: int) -> torch.Tensor:
+    """x (float32) as ``terms`` bf16 terms, each the rounding of what the
+    terms before it left, as the kernels split it (x times 2^24, so that
+    three terms hold even a subnormal x); their sum in float64, divided by
+    2^24."""
+    total, rest = torch.zeros_like(x, dtype=torch.float64), x * 2.0 ** 24
+    for _ in range(terms):
+        part = rest.bfloat16().float()
+        total += part.double()
+        rest = rest - part
+    return total / 2.0 ** 24
+
+
+def _tensor_core_plan(q, k, v, out, lse, dout, terms: int, dp_exact: bool):
+    """The bf16 kernels' arithmetic (causal): s and dp as the plain version
+    computes them (float32 products; with ``dp_exact``, dp summed exactly
+    and rounded once instead), p = exp(s - lse) and ds = p (dp - delta) in
+    float32, each as ``terms`` bf16 terms; their products with do, k and q
+    in float64, dq and dk times the scale, dk from q itself; dq, dk, dv in
+    bf16. Also returns whether the terms add up to p and ds exactly."""
+    B, H, S, D = q.shape
+    Kv = k.shape[1]
+    g = H // Kv
+    scale = torch.tensor(scale_of(D))
+    qf = q.float().reshape(B, Kv, g, S, D)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    dof = dout.float().reshape(B, Kv, g, S, D)
+    delta = (dout.float() * out.float()).sum(-1).reshape(B, Kv, g, S, 1)
+    s = torch.matmul(qf * scale, kf.transpose(-1, -2))
+    s.masked_fill_(torch.ones(S, S, dtype=torch.bool).triu(1), -math.inf)
+    p = (s - lse.reshape(B, Kv, g, S, 1)).exp()
+    if dp_exact:
+        dp = torch.matmul(dof.double(), vf.double().transpose(-1, -2)).float()
+    else:
+        dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (dp - delta) * p
+    pt, dst = _split(p, terms), _split(ds, terms)
+    exact = bool(torch.equal(pt, p.double()) and torch.equal(dst, ds.double()))
+    dv = torch.matmul(pt.transpose(-1, -2), dof.double()).sum(2)
+    dq = torch.matmul(dst, kf.double()) * float(scale)
+    dk = torch.matmul(dst.transpose(-1, -2), qf.double()).sum(2) * float(scale)
+    return (dq.reshape(B, H, S, D).bfloat16(), dk.bfloat16(),
+            dv.bfloat16()), exact
+
+
+@pytest.mark.parametrize("amp,terms,dp_exact,within", [
+    (1.0, 3, False, True), (1.0, 1, False, False),
+    (40.0, 3, False, True), (40.0, 3, True, False)])
+@pytest.mark.parametrize("shape", [(1, 1024, 3, 1, 128), (1, 512, 4, 2, 64)])
+def test_the_tensor_core_precision_plan(shape, amp, terms, dp_exact,
+                                        within):
+    """Against the float32 plain version rounded to bf16, at phi4-mini's
+    GQA group and head dim and at a smaller shape, causal: with s and dp
+    the plain version's, p and ds as three bf16 terms add up to the float32
+    values exactly (split times 2^24, as the kernels split them) and dq,
+    dk, dv stay within the card's bounds (within 2^-8 of the largest value,
+    at most 1e-3 of the elements more than one bf16 step apart; measured at
+    most 2e-5 of them); rounded once to bf16, over 10x that share (measured
+    0.12-0.13). With q scaled 40x the rows'
+    softmax is all but one-hot, as on phi4-mini's random-weight layers
+    (|s| ~ 1,300-1,500), and ds = p (dp - delta) cancels: three terms still
+    hold (measured at most 1e-5), but dp summed exactly, as a tensor core
+    could at best, puts over 10x the share over one step (measured 0.16 to
+    0.23 of dq)."""
+    B, S, H, Kv, D = shape
+    rng = np.random.default_rng(4)
+    q = torch.tensor(rng.standard_normal((B, H, S, D)) * amp,
+                     dtype=torch.bfloat16)
+    k, v = (torch.tensor(rng.standard_normal((B, Kv, S, D)),
+                         dtype=torch.bfloat16) for _ in range(2))
+    dout = torch.tensor(rng.standard_normal((B, H, S, D)),
+                        dtype=torch.bfloat16)
+    out, lse = flash_attention_fwd_plain(q, k, v, True)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, True)
+    got, exact = _tensor_core_plan(q, k, v, out, lse, dout, terms, dp_exact)
+    rel = max(_rel(_np32(g), _np32(w)) for g, w in zip(got, want))
+    share = max(float((_bf16_steps(g, w) > 1).float().mean())
+                for g, w in zip(got, want))
+    if within:
+        assert exact
+        assert rel <= CARD_RTOL and share <= CARD_OFF_SHARE
+    else:
+        assert share > 10 * CARD_OFF_SHARE
 
 
 @pytest.mark.cuda
