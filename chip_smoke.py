@@ -12,7 +12,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   compiled (one ``nvcc`` per source, all started together);
                   the tensor-core kernels (``gmm_tc_kernel``,
                   ``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``,
-                  ``flash_dkv_tc_kernel``) read from their libraries by
+                  ``flash_dkv_tc_kernel``, ``ssd_scan_tc_kernel``) read
+                  from their libraries by
                   ``cuobjdump``: registers, stack and local bytes (held: 0,
                   so no spills) and the count of ``HGMMA`` instructions in
                   each kernel's own SASS (held: not 0), beside its
@@ -113,8 +114,9 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   and through their plain versions (reported, not held:
                   random weights at this depth amplify rounding); last, the
                   same comparison of the backward on each layer of the
-                  second step of a fresh run from the seed, reported, not
-                  held (``second_step_layers``);
+                  second step of a fresh run from the seed, held at one
+                  bf16 step of the largest value (``FLASH_BWD_STEP2_RTOL``)
+                  and the same share (``second_step_layers``);
  11. check_gmm    the ``gmm`` kernel against its plain version on the same
                   numpy inputs: bfloat16 (the tensor-core kernel) at
                   deepseek-moe-16b's two serving products (E 64, C 1920, D
@@ -140,10 +142,14 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
  13. check_ssd    the ``ssd_scan`` kernel against its plain version on the
                   same numpy inputs: float32 at B 2, H 3, S 400, P 32, N 16,
                   chunk 200 and at B 1, H 2, S 512, P = N = 64, chunk 256;
-                  bfloat16 at zamba2-7b's serving shapes (B 4, H 112, P = N
-                  = 64: S 4096 at chunk 256, and S 200 at chunk 200); y and
-                  the float32 state held within ``SSD_*`` below, two
-                  launches bitwise equal;
+                  bfloat16 (the tensor-core kernel) at zamba2-7b's serving
+                  shapes (B 4, H 112, P = N = 64: S 4096 at chunk 256, and
+                  S 200 at chunk 200), at B 2, H 3, S 144, P 32, N 16,
+                  chunk 72 (a partial row sub-tile, P and N zero-filled,
+                  two chunks) and at B 1, H 2, S 96, P 12, N 20, chunk 48
+                  (x, B and C copied by cp.async, not TMA); y and the
+                  float32 state held within ``SSD_*`` below, two launches
+                  bitwise equal;
  14. serve_hybrid the hybrid serving path, ``repro_torch.launch.serve.serve``
                   on zamba2-7b at its published size in bfloat16 (random
                   weights from a seeded ``torch.Generator`` on the card): 4
@@ -199,7 +205,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   two MoE serving shapes beside ``torch.bmm`` (with its
                   TFLOP/s, its share of the bound and its ratio to
                   ``torch.bmm``),
-                  ``ssd_scan`` at zamba2-7b's serving shape and
+                  ``ssd_scan`` at zamba2-7b's serving shape (with the
+                  operations its tensor-core kernel issues) and
                   ``wkv6_scan`` at rwkv6-3b's forward shape (no PyTorch
                   call computes either scan); each beside the bound from
                   the shapes.
@@ -210,8 +217,9 @@ Then the whole run's seconds, the ``{"kernels": [...]}`` line,
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
-Phases 1-14 and the matching timings are the earlier slices' and run as
-they did.
+Phases 1-17 and the matching timings are the earlier slices'. The bf16
+``ssd_scan`` is now a tensor-core kernel (phases 2, 13, 14 and 18), and
+phase 10 holds the second training step's layers, which it reported.
 
     python3 chip_smoke.py --profile
 
@@ -324,6 +332,14 @@ SERVE_SEED = 0
 FLASH_BWD_F32_RTOL = 1e-5
 FLASH_BWD_BF16_RTOL = 2.0 ** -8
 FLASH_BWD_BF16_OFF_SHARE = 1e-3
+#: the second step of a fresh training run (``second_step_layers``): held
+#: at one bf16 step of the largest value (2^-7, the bound of gmm, ssd_scan
+#: and the host-model tests) with the same share. For a bf16 value in the
+#: largest value's binade [2^e, 2^(e+1)) one step is 2^(e-7): more than
+#: 2^-8 of the largest value and at most 2^-7 of it, so one element of that
+#: binade rounded the other way, which any order of sums other than the
+#: plain version's may give, can miss 2^-8 but never 2^-7
+FLASH_BWD_STEP2_RTOL = 2.0 ** -7
 #: (dtype, (B, S, H, Kv, D), causal): the training shape of phi4-mini-3.8b
 #: in bf16, then a small float32 GQA shape both ways, then the same small
 #: shape in bf16 both ways and a bf16 shape whose 128-row blocks run past
@@ -376,18 +392,26 @@ MOE_SEED = 0
 #: at most SSD_BF16_OFF_SHARE of the elements further apart than one bf16
 #: step of the plain value (the two sum the same float32 products in
 #: another order, and y rounds once to bf16); the float32 state within
-#: SSD_STATE_RTOL either way
+#: SSD_STATE_RTOL, and within SSD_BF16_STATE_RTOL after a bf16 scan: the
+#: tensor-core kernel's three bf16 terms of x w and of the carried state
+#: keep it within 3.2e-7 on zamba2-7b's 81 layers, where two terms each
+#: read 2.1e-6-6.4e-6 and pass the y bounds
 SSD_F32_RTOL = 1e-5
 SSD_BF16_RTOL = 2.0 ** -7
 SSD_BF16_OFF_SHARE = 1e-3
 SSD_STATE_RTOL = 1e-5
+SSD_BF16_STATE_RTOL = 1e-6
 #: (dtype, (B, H, S, P, N, chunk)): small float32 shapes (an odd chunk; N =
 #: P = 64), then zamba2-7b's prefill of 4 x 4096 tokens and of 4 x 200
-#: (chunk 200) in bf16
+#: (chunk 200) in bf16, and bf16 edge cases: two chunks of 72 (a partial
+#: row sub-tile, N and P below 64); P 12 and N 20, rows that are not a
+#: multiple of 16 bytes, which the kernel copies by cp.async, not TMA
 SSD_CASES = (("float32", (2, 3, 400, 32, 16, 200)),
              ("float32", (1, 2, 512, 64, 64, 256)),
              ("bfloat16", (4, 112, 4096, 64, 64, 256)),
-             ("bfloat16", (4, 112, 200, 64, 64, 200)))
+             ("bfloat16", (4, 112, 200, 64, 64, 200)),
+             ("bfloat16", (2, 3, 144, 32, 16, 72)),
+             ("bfloat16", (1, 2, 96, 12, 20, 48)))
 #: the hybrid serving requests: (batch, prompt tokens, generated tokens).
 #: At 4 x 4096 the scans run at chunk 256 and the shared attention takes
 #: the flash path; at 4 x 200 the scans run at chunk 200 and the attention
@@ -1363,11 +1387,12 @@ def flash_bwd_bounds(dtype: str) -> dict:
     return {"rel_err": FLASH_BWD_F32_RTOL}
 
 
-def hold_flash_bwd(err: dict, dtype: str, where: str) -> None:
-    """Raise unless ``flash_bwd_errors`` are within the ``FLASH_BWD_*``
-    bounds."""
+def hold_flash_bwd(err: dict, dtype: str, where: str,
+                   bounds: dict | None = None) -> None:
+    """Raise unless ``flash_bwd_errors`` are within ``bounds`` (the
+    ``FLASH_BWD_*`` bounds of ``dtype`` by default)."""
     for g in ("dq", "dk", "dv"):
-        for key, bound in flash_bwd_bounds(dtype).items():
+        for key, bound in (bounds or flash_bwd_bounds(dtype)).items():
             if err[f"{g}_{key}"] > bound:
                 raise AssertionError(
                     f"flash backward vs plain: {g} {key} {err[f'{g}_{key}']} "
@@ -1609,11 +1634,12 @@ def checked_step(step_fn, params, opt_state, batch) -> tuple:
 
 def second_step_layers(cfg, tx, tc, pipeline) -> dict:
     """``checked_step`` on the second step of a fresh run from
-    ``TRAIN_SEED`` (the Trainer's second step): reported, not held. On
-    these inputs the kernels miss the 2^-8 bound on 2 of the 32 layers
-    where the parent's CUDA-core kernels held (ROADMAP Queue C), so the
-    worst errors and each layer over a ``FLASH_BWD_BF16_*`` bound are
-    printed for the decision on what random-weight layers are held to."""
+    ``TRAIN_SEED`` (the Trainer's second step), each layer held at
+    ``FLASH_BWD_STEP2_RTOL`` and ``FLASH_BWD_BF16_OFF_SHARE``. On these
+    inputs one element of the largest binade of dk or dv lies a bf16 step
+    off on 2 of the 32 layers, over 2^-8 of the largest value, so the
+    worst errors and each layer over the ``FLASH_BWD_BF16_*`` bounds are
+    also printed."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1635,6 +1661,13 @@ def second_step_layers(cfg, tx, tc, pipeline) -> dict:
         c.launches = n  # not the main path's
     del params, opt_state, step_fn, batches
     torch.cuda.empty_cache()
+    if len(errs) != cfg.num_layers:
+        raise AssertionError(f"train: {len(errs)} checked layers at step 2")
+    held = {"rel_err": FLASH_BWD_STEP2_RTOL,
+            "share_over_one_step": FLASH_BWD_BF16_OFF_SHARE}
+    for i, err in enumerate(errs):
+        hold_flash_bwd(err, "bfloat16", f"(train step 2, layer "
+                       f"{cfg.num_layers - 1 - i})", held)
     bounds = flash_bwd_bounds("bfloat16")
     over = {cfg.num_layers - 1 - i: {f"{g}_{key}": err[f"{g}_{key}"]
                                      for g in ("dq", "dk", "dv")
@@ -1643,7 +1676,7 @@ def second_step_layers(cfg, tx, tc, pipeline) -> dict:
             if any(err[f"{g}_{key}"] > bound for g in ("dq", "dk", "dv")
                    for key, bound in bounds.items())}
     return {"layers": len(errs), "worst": worst_of(errs, FLASH_BWD_ERROR_KEYS),
-            "layers_over_bounds": over}
+            "bounds": held, "layers_over_step5_bounds": over}
 
 
 def gmm_inputs(shape, dtype, seed: int):
@@ -1968,7 +2001,7 @@ def ssd_bounds(dtype: str) -> dict:
     if dtype == "bfloat16":
         return {"y_rel_err": SSD_BF16_RTOL,
                 "y_share_over_one_step": SSD_BF16_OFF_SHARE,
-                "state_rel_err": SSD_STATE_RTOL}
+                "state_rel_err": SSD_BF16_STATE_RTOL}
     return {"y_rel_err": SSD_F32_RTOL, "state_rel_err": SSD_STATE_RTOL}
 
 
@@ -1994,9 +2027,14 @@ def phase_check_ssd() -> dict:
     ``SSD_*`` bounds. Returns the worst errors per dtype."""
     import torch
 
-    from repro_torch.kernels.ssd_scan import smem_plan, ssd_scan, \
-        ssd_scan_plain
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import _bind, smem_plan, ssd_scan, \
+        ssd_scan_plain, tc_smem_plan
 
+    if _bind(build.load("ssd_scan")).ssd_scan_tc_smem_bytes() != \
+            tc_smem_plan()["total"]:
+        raise AssertionError("ssd_scan_tc_kernel's shared memory and "
+                             "tc_smem_plan disagree")
     worst = {}
     for i, (dtype, shape) in enumerate(SSD_CASES):
         B, H, S, P, N, chunk = shape
@@ -2015,7 +2053,8 @@ def phase_check_ssd() -> dict:
         err = ssd_errors(y, state, py, pstate)
         emit({"phase": "check_ssd", "dtype": dtype,
               "shape_BHSPN_chunk": list(shape), "bitwise_repeat": True,
-              "smem_bytes": smem_plan(chunk, N, P)["total"], **err,
+              "smem_bytes": tc_smem_plan()["total"] if dtype == "bfloat16"
+              else smem_plan(chunk, N, P)["total"], **err,
               "bounds": ssd_bounds(dtype)})
         hold_ssd(err, f"({dtype}, {shape})")
         worst[dtype] = worst_of([worst.get(dtype, {}), err],
@@ -2221,10 +2260,13 @@ def phase_timing_ssd(smi: str) -> list:
     """CUDA-event medians of ``ssd_scan`` and of its plain version at
     zamba2-7b's bf16 serving shape (4 x 4096 tokens: BH 448, chunk 256),
     beside the bound from ``work()`` (no single PyTorch call computes the
-    SSD scan, so there is no library time)."""
+    SSD scan, so there is no library time) and the operations the
+    tensor-core kernel issues (``tc_operations``: padding and the three
+    bf16 terms included)."""
     import torch
 
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain, work
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain, \
+        tc_operations, work
 
     dtype, shape = SSD_CASES[2]
     B, H, S, P, N, chunk = shape
@@ -2248,7 +2290,10 @@ def phase_timing_ssd(smi: str) -> list:
            "bound_f32_cuda_cores_ms": wk["flops"] / PEAK_F32_FLOPS * 1e3,
            "flops": wk["flops"], "bytes": wk["bytes"],
            "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
-           "tflops": wk["flops"] / kernel_ms / 1e9, "card": smi}
+           "tflops": wk["flops"] / kernel_ms / 1e9,
+           "tc_flops_issued": tc_operations(B * H, S, chunk),
+           "tc_tflops_issued": tc_operations(B * H, S, chunk) / kernel_ms
+           / 1e9, "card": smi}
     emit(row)
     del args
     torch.cuda.empty_cache()
@@ -3011,10 +3056,11 @@ def main() -> int:
     flash_build = tc_build(log, "flash_attention_fwd", "flash_fwd_tc_kernel")
     bwd_build = {kernel: tc_build(log, "flash_attention_bwd", kernel)
                  for kernel in ("flash_dq_tc_kernel", "flash_dkv_tc_kernel")}
+    ssd_build = tc_build(log, "ssd_scan", "ssd_scan_tc_kernel")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in log.items()},
           "gmm_tc_kernel": gmm_build, "flash_fwd_tc_kernel": flash_build,
-          **bwd_build})
+          **bwd_build, "ssd_scan_tc_kernel": ssd_build})
 
     if sys.argv[1:] == ["--drift"]:
         phase_drift()
@@ -3192,7 +3238,10 @@ def main() -> int:
         "bound_f32_cuda_cores_ms": ssd_row["bound_f32_cuda_cores_ms"],
         "library_ms": None, "library_call": ssd_row["library_call"],
         "shape_BHSPN_chunk": ssd_row["shape_BHSPN_chunk"],
-        "dtype": "bfloat16", "ok": True}, {
+        "dtype": "bfloat16", "tflops": ssd_row["tflops"],
+        "bound_share": ssd_row["bound_share"],
+        "tc_tflops_issued": ssd_row["tc_tflops_issued"],
+        "tc_kernel": ssd_build, "ok": True}, {
         "name": "wkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6.py:69",

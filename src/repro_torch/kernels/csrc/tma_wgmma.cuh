@@ -1,22 +1,26 @@
 // Parts shared by the port's tensor-core kernels for Hopper (sm_90a):
-// gmm.cu (gmm_tc_kernel), flash_attention_fwd.cu (flash_fwd_tc_kernel) and
-// flash_attention_bwd.cu (flash_dq_tc_kernel, flash_dkv_tc_kernel).
+// gmm.cu (gmm_tc_kernel), flash_attention_fwd.cu (flash_fwd_tc_kernel),
+// flash_attention_bwd.cu (flash_dq_tc_kernel, flash_dkv_tc_kernel) and
+// ssd_scan.cu (ssd_scan_tc_kernel).
 //
-// All stage bf16 tiles in shared memory with TMA, as boxes whose rows are
-// 128 bytes (64 bf16) wide in the 128-byte swizzle, and multiply them with
-// wgmma.mma_async (f32 += bf16 x bf16) reading the operands through
-// shared-memory matrix descriptors. What lives here:
+// All stage bf16 tiles in shared memory (by TMA, or, in ssd_scan.cu, by
+// the threads' own stores), as rows 128 bytes (64 bf16) wide in the
+// 128-byte swizzle, and multiply them with wgmma.mma_async (f32 += bf16 x
+// bf16) reading the operands through shared-memory matrix descriptors.
+// What lives here:
 //   - for both compilers: the descriptor builder, the accumulator fragment
 //     layout and the A fragment of a 16-bit operand in registers, the
 //     128-byte swizzle, bf16 packing and a bf16 pair store, the split of a
 //     float32 fragment into bf16 terms, the tensor map's shape (MapSpec);
-//   - with nvcc: mbarriers, the 3-D TMA load, the m64n128k16 product with
-//     both operands in shared memory and with A from registers, and
+//   - with nvcc: mbarriers, the 3-D TMA load, the m64n128k16 and
+//     m64n64k16 products with both operands in shared memory and with A
+//     from registers, and
 //     cuTensorMapEncodeTiled found through cudaGetDriverEntryPoint (no
 //     -lcuda);
 //   - without nvcc (the CPU emulation in the tests): SmemModel, which lays
-//     TMA boxes into a byte array with the zero fill and the swizzle
-//     written out, and reads each wgmma operand through its descriptor as
+//     TMA boxes (or a thread's stores) into a byte array with the zero
+//     fill and the swizzle written out, and reads each wgmma operand
+//     through its descriptor as
 //     the tensor cores address the swizzled layouts, and model_wgmma, one
 //     product in k order. They cannot show the PTX, the barriers or the
 //     tensor cores' own order of sums.
@@ -122,6 +126,8 @@ __host__ __device__ constexpr int a_col(int t, int r, int h) {
 // float32 exactly. Packed pair by pair: register j of a term holds
 // x[first + 2j] and the next, so that registers 4 s .. 4 s + 3 are the A
 // fragment of the s-th 16 columns from first on.
+// (What a term leaves is read back from the packed pair itself: one
+// conversion per pair and term.)
 template <int T, int R>
 __host__ __device__ inline void split_terms(const float* x, int first,
                                             std::uint32_t (&terms)[T][R]) {
@@ -131,8 +137,8 @@ __host__ __device__ inline void split_terms(const float* x, int first,
 #pragma unroll
     for (int u = 0; u < T; ++u) {
       terms[u][j] = pack_bf16(a, b);
-      a -= bf16_round(a);
-      b -= bf16_round(b);
+      a -= half_of(terms[u][j], 0);
+      b -= half_of(terms[u][j], 1);
     }
   }
 }
@@ -297,6 +303,62 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TransB));
 }
 
+// d (+)= A B, one m64n64k16 with both operands in shared memory: A
+// K-major, B K-major (TransB 0) or MN-major (TransB 1); accumulate 0
+// overwrites d.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   std::uint64_t da,
+                                                   std::uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TransB));
+}
+
+// d += A B, one m64n64k16 with A (16 columns of bf16 pairs, a_row /
+// a_col) from registers and B in shared memory, K-major (TransB 0) or
+// MN-major (TransB 1).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   std::uint32_t a0,
+                                                   std::uint32_t a1,
+                                                   std::uint32_t a2,
+                                                   std::uint32_t a3,
+                                                   std::uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TransB));
+}
+
 // blockIdx.x, read anew: a consumer works its block's coordinates out again
 // where it needs them rather than keep them in registers through its loop
 // (ptxas spilled them)
@@ -391,6 +453,17 @@ struct SmemModel {
           }
           std::memcpy(&smem[a], v, 2);
         }
+  }
+
+  // a thread's store of `bytes` bytes (2, 4 or 8, within one 16-byte
+  // chunk) at addr, swizzled
+  void store(std::uint32_t addr, const void* src, int bytes) {
+    addr = swizzle128(addr);
+    if (addr + bytes > smem.size()) {
+      ok = false;
+      return;
+    }
+    std::memcpy(&smem[addr], src, bytes);
   }
 
   struct Desc {

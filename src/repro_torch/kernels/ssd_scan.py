@@ -1,12 +1,15 @@
 """Chunked Mamba2 / SSD scan: the CUDA kernel's wrapper, its plain PyTorch
-version, the work it does and its shared-memory plan.
+version, the work it does and its shared-memory plans.
 
 ``ssd_scan(x, dt, A, Bm, Cm, heads=, chunk=)`` launches ``csrc/ssd_scan.cu``
-(one thread block per batch-head row, the chunks a loop inside the block,
-the float32 state resident in shared memory; it replaces the Pallas TPU
-kernel ``src/repro/kernels/mamba2_scan.py:69 ssd_scan`` of the JAX
-package). ``ssd_scan_plain`` computes the same function with the TPU
-kernel's op order, one chunk at a time over all rows at once; it is what a
+(it replaces the Pallas TPU kernel ``src/repro/kernels/mamba2_scan.py:69
+ssd_scan`` of the JAX package): in bfloat16 ``ssd_scan_tc_kernel``, a
+persistent block per SM taking (batch-head row, chunk) tiles by ticket,
+the products on the tensor cores (``wgmma``), the chunks of a row in
+parallel and only the carried state passed from tile to tile; in float32
+``ssd_scan_kernel``, one block per row on the CUDA cores, the chunks a loop
+inside the block. ``ssd_scan_plain`` computes the same function with the
+TPU kernel's op order, one chunk at a time over all rows at once; it is what a
 CPU tensor runs (``kernels.ops.ssd``) and what the kernel is held against
 on the card.
 
@@ -16,8 +19,8 @@ Cm ``[B, S, N]`` in x's type, row ``bh`` reading batch ``bh // heads``.
 Both return ``(y [BH, S, P]`` in x's type``, state [BH, N, P]`` float32``)``.
 
 Bound (``work``): the operations over the card's bf16 tensor rate
-(989 TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger; the
-kernel's own products run on the float32 CUDA cores (67 TFLOP/s).
+(989 TFLOP/s) or the bytes over 3.35 TB/s, whichever is larger.
+``tc_operations`` counts what the bf16 kernel issues on the tensor cores.
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ MAX_CHUNK = 256
 MAX_NP = 64
 SMEM_LIMIT = 232_448
 DTYPES = (torch.float32, torch.bfloat16)
+#: bf16 terms of each float32 operand of the tensor-core kernel's products
+#: (the decayed scores, the carried state, x w): three hold it exactly
+TC_TERMS = 3
+#: a carried state of the tensor-core kernel, N and P zero-filled to 64
+TC_SLOT = 64 * 64
 
 
 def _check(x, dt, A, Bm, Cm, heads: int, chunk: int) -> tuple:
@@ -87,6 +95,34 @@ def smem_plan(chunk: int, N: int, P: int) -> dict:
     return plan
 
 
+def tc_smem_plan() -> dict:
+    """Bytes of dynamic shared memory one block of the bf16 tensor-core
+    kernel asks for, by part (``csrc/ssd_scan.cu``, ``kTcSmemBytes``),
+    whatever the dims: slack to align to the 1,024-byte swizzle atom; two
+    buffers (one chunk's loads run while the block works on another), each
+    x, B and C of a chunk as bf16 rows of 64 (128 bytes, swizzled), 256
+    rows each; the carried state's three bf16 terms (64 x 64 each; before
+    them, the second warpgroup's part of the chunk's own state); cum, w and
+    dt of each buffer's chunk; the two tickets; a TMA mbarrier per
+    buffer."""
+    parts = {"alignment": 1024, "x, B, C (two buffers)": 2 * 3 * 256 * 128,
+             "state terms": TC_TERMS * 64 * 128,
+             "cumsum, w, dt (two each)": 6 * 256 * 4, "tickets": 8,
+             "mbarriers": 16}
+    return {**parts, "total": sum(parts.values())}
+
+
+def tc_scratch(BH: int, S: int, chunk: int, device) -> tuple:
+    """The tensor-core kernel's scratch, allocated on the current stream:
+    the carried states ``[S / chunk, BH, 64 * 64]`` float32 (written and
+    read by the kernel only) and ``S / chunk x BH + 1`` int32 zeros (a flag
+    per published state, then the ticket counter)."""
+    nc = S // chunk
+    return (torch.empty((nc, BH, TC_SLOT), dtype=torch.float32,
+                        device=device),
+            torch.zeros(nc * BH + 1, dtype=torch.int32, device=device))
+
+
 def check_smem_fit(chunk: int, N: int, P: int) -> dict:
     """``smem_plan``; raises ``ValueError`` when the dims are outside what the
     kernel takes (chunk in [1, 256], N and P multiples of 4 in [4, 64]) or
@@ -110,11 +146,13 @@ def check_smem_fit(chunk: int, N: int, P: int) -> dict:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.ssd_scan_smem_bytes.restype = ctypes.c_int
+        lib.ssd_scan_tc_smem_bytes.argtypes = []
+        lib.ssd_scan_tc_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -127,7 +165,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Raises on tensors the kernel does not take (not on the card, other
     dtypes, a chunk outside [1, 256] or not dividing S, N or P not a
     multiple of 4 in [4, 64], a non-contiguous layout) and on a refused
-    launch; it never runs the plain version. It has no gradient
+    launch; it never runs the plain version. In bfloat16 it allocates the
+    tensor-core kernel's scratch (``tc_scratch``) and copies an x, Bm or
+    Cm whose data is not 8-byte aligned. It has no gradient
     (``kernels.ops.ssd`` refuses a CUDA input that needs one).
     ``ssd_scan.launches`` counts launches."""
     BH, S, P, N = _check(x, dt, A, Bm, Cm, heads, chunk)
@@ -138,15 +178,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    y = torch.empty_like(x)
-    state = torch.empty((BH, N, P), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:  # the tensor-core kernel copies 8 bytes at a time
+        x, Bm, Cm = (t if t.data_ptr() % 8 == 0 else t.clone()
+                     for t in (x, Bm, Cm))
     lib = _bind(build.load("ssd_scan"))
     with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        state = torch.empty((BH, N, P), dtype=torch.float32, device=x.device)
+        states, flags = tc_scratch(BH, S, chunk, x.device) if bf16 else \
+            (None, None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), BH, S, P, N,
-            chunk, heads, int(x.dtype == torch.bfloat16), stream)
+            Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+            states.data_ptr() if bf16 else None,
+            flags.data_ptr() if bf16 else None, BH, S, P, N, chunk, heads,
+            int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error "
                            f"{err}")
@@ -218,3 +266,16 @@ def work(BH: int, S: int, P: int, N: int, chunk: int,
     return {"flops": 2 * fma,
             "bytes": item * (2 * BH * S * P + 2 * (BH // heads) * S * N)
             + 4 * (BH * S + BH + BH * N * P)}
+
+
+def tc_operations(BH: int, S: int, chunk: int) -> int:
+    """Operations the bf16 kernel issues on the tensor cores (2 per
+    multiply-add of its m64n64k16 products, padding and terms included):
+    per chunk, rows zero-filled to a multiple of 64 in ``r`` sub-tiles,
+    C B^T (4 products) and scores x (4 x ``TC_TERMS``) for each of the
+    ``r (r + 1) / 2`` tile pairs at or left of the diagonal, C S (4 x
+    ``TC_TERMS``) per sub-tile and L^T (``TC_TERMS`` per 16 rows)."""
+    r = -(-chunk // 64)
+    products = (r * (r + 1) // 2 * (4 + 4 * TC_TERMS) + r * 4 * TC_TERMS
+                + 4 * r * TC_TERMS)
+    return BH * (S // chunk) * products * 2 * 64 * 64 * 16

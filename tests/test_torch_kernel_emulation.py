@@ -12,21 +12,29 @@ without a card: the kernels' indexing, shared-memory carve-up, argument
 unpacking and op order. What it cannot check: races, launch limits and the
 card's own ``expf``/``powf`` (the chip check does, ``chip_smoke.py``).
 
-The bfloat16 ``gmm``, flash forward and flash backward are the
-exceptions: their tensor-core kernels (TMA, mbarriers, ``wgmma``) have no
-one-thread form, so without nvcc each source's launcher runs its host model
-of that kernel instead (``csrc/gmm.cu``, ``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``): the same blocks, stage offsets, box
-coordinates, wgmma descriptors and epilogue, with TMA's zero fill and
-128-byte swizzle written out and each product read through its descriptors
-as the tensor cores address the swizzled layouts; for the flash kernels
-also the lanes of the CUDA cores' sums (the scores; in the backward also
-dp) and their exchange into the accumulator fragment, the softmax or p and
-ds, the three bf16 terms and their packing into A fragments. What the CPU
-no longer covers there: the PTX, the barriers, the accumulator fragment
-layout on the card and the tensor cores' own order of sums
-(``chip_smoke.py``'s ``check_gmm``, ``check_flash`` and
-``check_flash_bwd`` hold those on the card).
+The bfloat16 ``gmm``, flash forward, flash backward and ``ssd_scan`` are
+the exceptions: their tensor-core kernels (TMA or the threads' own staging,
+mbarriers or named barriers, ``wgmma``) have no one-thread form, so without
+nvcc each source's launcher runs its host model of that kernel instead
+(``csrc/gmm.cu``, ``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan.cu``): the same blocks,
+stage offsets, box coordinates, wgmma descriptors and epilogue, with TMA's
+zero fill and 128-byte swizzle written out and each product read through
+its descriptors as the tensor cores address the swizzled layouts; for the
+flash kernels also the lanes of the CUDA cores' sums (the scores; in the
+backward also dp) and their exchange into the accumulator fragment, the
+softmax or p and ds, the three bf16 terms and their packing into A
+fragments; for ``ssd_scan`` the blocks' tickets, the staging of x, B and C
+into swizzled tiles, the two warpgroups' halves of the chunk's own state,
+the carried states through their slots and flags, the decayed scores in
+the accumulator fragment, the three-term packing of the scores, the
+state and x w, and at P = 64 y's transpose within each quad of threads
+(its shuffles exchanged between the modelled lanes). What the CPU no
+longer covers there: the PTX, the barriers (and, for ``ssd_scan``, the
+blocks running at once and waiting on their flags), the accumulator
+fragment layout on the card and the tensor cores' own order of sums
+(``chip_smoke.py``'s ``check_gmm``, ``check_flash``, ``check_flash_bwd``
+and ``check_ssd`` hold those on the card).
 
 Tolerances (measured): ``ddpg_learn`` within 1e-6 x max|plain| per tensor
 (measured 1.0e-7); ``episode_learn`` knob indices, restarts, keys, counts
@@ -43,15 +51,16 @@ elements more than one bf16 step away); ``gmm`` float32 (the CUDA-core
 kernel) within 2e-6 relative, bfloat16 (the tensor-core kernel's host
 model) within one bf16 ulp of the largest value (measured 0 and 0; at the
 edge and whole tiles 0, and 2.1e-4 at D = 384, where one element rounds
-the other way); ``ssd_scan`` y and
-state within 2e-6 relative in float32 (measured 6.6e-8 and 5.3e-9: the
-float64 cumsum rounds alike, the sums of products differ in order), y
-within one bf16 ulp of its largest value and the float32 state within 2e-6
-in bfloat16 (measured 0 and 1.1e-8); ``wkv6_scan`` y and state within 2e-6
-relative in float32 (measured 2.7e-7 and 2.1e-8, strong decay included: the
-cumsums agree bitwise, the sums of products differ in order), y within one
-bf16 ulp of its largest value and the float32 state within 2e-6 in bfloat16
-(measured 1.1e-4 and 3.6e-8: a few elements of y round the other way).
+the other way); ``ssd_scan`` y and state within 2e-6 relative in float32
+(measured 6.6e-8 and 5.3e-9: the float64 cumsum rounds alike, the sums of
+products differ in order), y within one bf16 ulp of its largest value and
+the float32 state within 2e-6 in bfloat16 (the tensor-core kernel's host
+model; measured at most 2.6e-9 and 2.0e-7, with no element more than one
+bf16 step away); ``wkv6_scan`` y and state within 2e-6 relative in float32
+(measured 2.7e-7 and 2.1e-8, strong decay included: the cumsums agree
+bitwise, the sums of products differ in order), y within one bf16 ulp of its
+largest value and the float32 state within 2e-6 in bfloat16 (measured 1.1e-4
+and 3.6e-8: a few elements of y round the other way).
 """
 
 import ctypes
@@ -86,6 +95,8 @@ from repro_torch.kernels.gmm import smem_plan as gmm_smem_plan
 from repro_torch.kernels.ssd_scan import _bind as ssd_bind
 from repro_torch.kernels.ssd_scan import smem_plan as ssd_smem_plan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.kernels.ssd_scan import tc_scratch as ssd_tc_scratch
+from repro_torch.kernels.ssd_scan import tc_smem_plan as ssd_tc_smem_plan
 from repro_torch.kernels.wkv6_scan import _bind as wkv_bind
 from repro_torch.kernels.wkv6_scan import smem_plan as wkv_smem_plan
 from repro_torch.kernels.wkv6_scan import wkv6_scan_plain
@@ -183,6 +194,12 @@ def emulated(tmp_path_factory):
                         str(out / f"{name}.cpp"), str(out / "defs.cpp")],
                        check=True, capture_output=True, timeout=300)
         libs[name] = ctypes.CDLL(str(lib))
+    # the first torch.exp of a process may round some elements of a tensor
+    # differently from every later call (seen on a [2, 3, 72, 72] tensor
+    # in about 1 process of 6), which moves the plain versions' float32
+    # results by up to ~5e-5: one call first, so that they are the same in
+    # every process
+    torch.exp(torch.zeros(8))
     return libs
 
 
@@ -602,7 +619,8 @@ def test_ssd_scan_source_matches_plain(emulated, b, h, s, p, n, chunk,
     y = torch.empty_like(x)
     state = torch.empty((b * h, n, p))
     lib = ssd_bind(emulated["ssd_scan"])
-    ptrs = [t.data_ptr() for t in (x, dt, A, Bm, Cm, y, state)]
+    scratch = ssd_tc_scratch(b * h, s, chunk, "cpu")
+    ptrs = [t.data_ptr() for t in (x, dt, A, Bm, Cm, y, state, *scratch)]
     bf16 = int(dtype == torch.bfloat16)
     assert lib.ssd_scan_launch(*ptrs, b * h, s, p, n, chunk, h, bf16,
                                None) == 0
@@ -614,6 +632,85 @@ def test_ssd_scan_source_matches_plain(emulated, b, h, s, p, n, chunk,
     for q in (1, 24, chunk, 200, 256):
         assert lib.ssd_scan_smem_bytes(q, n, p) == \
             ssd_smem_plan(q, n, p)["total"]
+
+
+def _ssd_run(lib, shape, seed):
+    """bf16 inputs from numpy as the source test draws them; the launcher's
+    y and state (NaN where it wrote nothing) and the plain version's."""
+    b, h, s, p, n, chunk = shape
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((b * h, s, p)) * 0.5,
+                     dtype=torch.bfloat16)
+    dt = torch.tensor(rng.uniform(0.1, 0.9, (b * h, s)), dtype=torch.float32)
+    A = -torch.tensor(rng.uniform(0.5, 2.0, b * h), dtype=torch.float32)
+    Bm, Cm = (torch.tensor(rng.standard_normal((b, s, n)) * 0.3,
+                           dtype=torch.bfloat16) for _ in range(2))
+    want = ssd_scan_plain(x, dt, A, Bm, Cm, heads=h, chunk=chunk)
+    y = torch.full_like(x, float("nan"))
+    state = torch.full((b * h, n, p), float("nan"))
+    scratch = ssd_tc_scratch(b * h, s, chunk, "cpu")
+    err = lib.ssd_scan_launch(
+        *(t.data_ptr() for t in (x, dt, A, Bm, Cm, y, state, *scratch)),
+        b * h, s, p, n, chunk, h, 1, None)
+    return err, (y, state), want, scratch
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 1024, 64, 64, 64),   # 16 chunks: the state carried 15 links
+    (1, 3, 768, 64, 64, 256),   # three chunks of four row sub-tiles
+    (2, 1, 96, 8, 12, 24),      # N, P and the chunk far below a tile
+])
+def test_ssd_tensor_core_model_matches_plain(emulated, shape):
+    """The bfloat16 launcher's host model of the tensor-core kernel over
+    many chunks per row (every state published, flagged and read back by
+    the next chunk's block, the last chunk's written out), at chunk 256
+    (both warpgroups' row sub-tiles) and at a chunk of one sub-tile with N
+    and P zero-filled; every output written (the buffers start NaN), y
+    within one bf16 ulp of its largest value with at most 1e-3 of the
+    elements more than one bf16 step away, the float32 state within 2e-6
+    (measured y 2.2e-4, 8.1e-4 and 0, at most 6.8e-6 of the elements over
+    one step, the state at most 2.3e-7); every ticket taken and every flag
+    but the last chunk's set."""
+    err, got, want, (_, flags) = _ssd_run(ssd_bind(emulated["ssd_scan"]),
+                                         shape, seed=sum(shape))
+    assert err == 0
+    y, state = got
+    assert bool(torch.isfinite(y.float()).all())
+    assert bool(torch.isfinite(state).all())
+    assert _rel(y, want[0]) <= 2.0 ** -7
+    assert float((_bf16_steps(y, want[0]) > 1).float().mean()) <= 1e-3
+    assert _rel(state, want[1]) <= 2e-6
+    b, h, s, _, _, chunk = shape
+    nc = s // chunk
+    assert int(flags[-1]) == nc * b * h
+    assert flags[:(nc - 1) * b * h].eq(1).all()
+    assert flags[(nc - 1) * b * h:-1].eq(0).all()
+
+
+def test_ssd_tensor_core_contract_and_plan(emulated):
+    """The bfloat16 launcher takes a chunk in [1, 256] that divides S, N
+    and P multiples of 4 in [4, 64] and BH a positive multiple of heads,
+    and refuses the rest with -1 before it reads anything, and x, B, C not
+    8-byte aligned with -2; the shared memory it asks for is
+    ``tc_smem_plan``'s, within the 232,448 bytes a block may use."""
+    lib = ssd_bind(emulated["ssd_scan"])
+    for BH, S, P, N, Q, heads in ((2, 512, 64, 64, 512, 1),
+                                  (2, 300, 64, 64, 256, 1),
+                                  (2, 256, 64, 68, 256, 1),
+                                  (2, 256, 66, 64, 256, 1),
+                                  (2, 256, 64, 0, 256, 1),
+                                  (2, 256, 0, 64, 256, 1),
+                                  (2, 256, 64, 64, 0, 1),
+                                  (3, 256, 64, 64, 256, 2),
+                                  (0, 256, 64, 64, 256, 1),
+                                  (2, 0, 64, 64, 1, 1)):
+        assert lib.ssd_scan_launch(*[None] * 9, BH, S, P, N, Q, heads, 1,
+                                   None) == -1
+    # bf16 rows are copied 8 bytes at a time: a misaligned x is refused
+    assert lib.ssd_scan_launch(2, *[None] * 8, 2, 256, 64, 64, 256, 1, 1,
+                               None) == -2
+    assert lib.ssd_scan_tc_smem_bytes() == ssd_tc_smem_plan()["total"]
+    assert ssd_tc_smem_plan()["total"] == 228_376 <= 232_448
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -21,6 +21,14 @@ Tolerances, as max|port - jax| / max|jax| (measured on the CPU):
 The CUDA kernel itself runs only on a card (the ``cuda`` test below, and
 ``chip_smoke.py``); its source runs on the CPU in
 ``tests/test_torch_kernel_emulation.py``.
+
+The bf16 kernel's precision plan (its products on the tensor cores: C B^T
+from the bf16 values, the decayed scores on the CUDA cores as the plain
+version computes them, the scores, the carried state and x w entering
+their products as three bf16 terms, each sum taken in another order than
+the plain version's) is pinned here against the card's bounds; two bf16
+terms instead of three are shown to fail them through the state alone,
+and one term through y and the state.
 """
 
 import jax.numpy as jnp
@@ -32,7 +40,7 @@ from repro.kernels import ref as jref
 from repro.kernels.mamba2_scan import ssd_scan as jssd_scan
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import check_smem_fit, smem_plan, \
-    ssd_scan, ssd_scan_plain, work
+    ssd_scan, ssd_scan_plain, tc_operations, tc_scratch, tc_smem_plan, work
 
 #: (b, s, h, p, n, chunk): the reference's own test shapes, a chunk of 200
 #: (not a multiple of any tile) and 8 heads over 2 batch rows
@@ -56,6 +64,63 @@ def _inputs(b, s, h, p, n, seed=0):
     Bm = rng.standard_normal((b, s, n)) * 0.3
     Cm = rng.standard_normal((b, s, n)) * 0.3
     return [a.astype(np.float32) for a in (x, dt, A, Bm, Cm)]
+
+
+def _terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """x (float32) as ``terms`` bf16 terms, each the rounding of what the
+    terms before it left (``csrc/tma_wgmma.cuh::split_terms``); their sum
+    in float64 (three terms hold a float32 exactly)."""
+    total, rest = torch.zeros_like(x, dtype=torch.float64), x
+    for _ in range(terms):
+        part = rest.bfloat16().float()
+        total += part.double()
+        rest = rest - part
+    return total
+
+
+def _tensor_core_plan(x, dt, A, Bm, Cm, *, heads: int, chunk: int,
+                      terms: int = 3):
+    """The bf16 tensor-core kernel's arithmetic, in ``ssd_scan_plain``'s op
+    order: every product of the chunk summed exactly (float64) and rounded
+    once to float32, as a tensor core's other order of sums may at best:
+    C B^T from the bf16 values; the decayed scores ``cb * exp(cum_t -
+    cum_s) * dt_s`` in float32 as the plain version computes them; the
+    scores, the carried state and ``x w`` into their products as ``terms``
+    bf16 terms; y rounded once to x's type, the state in float32."""
+    BH, S, P = x.shape
+    N = Bm.shape[-1]
+    B, H, Q = BH // heads, heads, chunk
+    xv, dtv, Av = x.reshape(B, H, S, P), dt.reshape(B, H, S), \
+        A.reshape(B, H, 1)
+    mask = torch.ones((Q, Q), dtype=torch.bool).tril()
+    state = torch.zeros((B, H, N, P))
+    y = torch.empty_like(xv)
+    for c0 in range(0, S, Q):
+        xc, dtc = xv[:, :, c0:c0 + Q].float(), dtv[:, :, c0:c0 + Q]
+        Bc, Cc = (m[:, None, c0:c0 + Q].double() for m in (Bm, Cm))
+        cum = torch.cumsum((dtc * Av).double(), dim=-1).float()
+        dec = torch.where(mask, torch.exp(cum[..., :, None]
+                                          - cum[..., None, :]), 0.0)
+        cb = torch.matmul(Cc, Bc.transpose(-1, -2)).float()
+        scores = cb * dec * dtc[..., None, :]
+        yc = torch.matmul(_terms(scores, terms), xc.double()).float()
+        yc = yc + torch.matmul(Cc, _terms(state, terms)).float() \
+            * torch.exp(cum)[..., None]
+        y[:, :, c0:c0 + Q] = yc.to(x.dtype)
+        a_tot = cum[..., -1:]
+        w = torch.exp(a_tot - cum) * dtc
+        state = torch.exp(a_tot)[..., None] * state + torch.matmul(
+            Bc.transpose(-1, -2), _terms(xc * w[..., None], terms)).float()
+    return y.view(BH, S, P), state.view(BH, N, P)
+
+
+def _bf16_steps(a, b):
+    """Per element, |a - b| in units of the bfloat16 spacing at b (as
+    ``chip_smoke.py`` counts them)."""
+    b = b.float()
+    _, exp = torch.frexp(b)
+    step = torch.ldexp(torch.ones_like(b), exp - 8).clamp_min(2.0 ** -133)
+    return (a.float() - b).abs() / step
 
 
 def _fold(x, dt, A, h):
@@ -114,6 +179,44 @@ def test_ops_ssd_matches_the_oracle(shape, dtype, y_tol):
         tuple(state.shape) == (b, h, n, p)
     assert _rel(y.float().numpy(), np.asarray(want_y)) <= y_tol
     assert _rel(state.numpy(), np.asarray(want_s)) <= 1e-5
+
+
+@pytest.mark.parametrize("terms,within",
+                         [(3, True), (2, False), (1, False)])
+@pytest.mark.parametrize("shape", SHAPES[1:2] + SHAPES[3:4] +
+                         [(2, 512, 4, 64, 64, 256)])
+def test_the_tensor_core_precision_plan(shape, terms, within):
+    """Against ``ssd_scan_plain`` in bf16 (the card's bounds: y within one
+    bf16 step of its largest value, at most 1e-3 of the elements more than
+    one bf16 step apart, the float32 state within 1e-6), at the reference's
+    chunk 64, chunk 200 and zamba2-7b's chunk 256 at N = P = 64: with three
+    terms the plan holds (measured y 7.9e-7-2.3e-3, a few elements rounding
+    the other way; no element over one step; state 3.0e-8-8.0e-8); two
+    terms keep y within its bounds (measured 1.4e-3-2.3e-3, 1.0e-4-1.6e-4
+    over one step) but put the state over 1e-6 (3.7e-6-4.7e-6); one term
+    puts over 10x that share over one step (measured 6.3e-2-7.2e-2) and
+    the state over 1e-5 (1.9e-3-3.0e-3)."""
+    b, s, h, p, n, chunk = shape
+    x, dt, A, Bm, Cm = _inputs(b, s, h, p, n)
+    xf, dtf, Af = (torch.from_numpy(a) for a in _fold(x, dt, A, h))
+    args = (xf.bfloat16(), dtf, Af, torch.from_numpy(Bm).bfloat16(),
+            torch.from_numpy(Cm).bfloat16())
+    want_y, want_s = ssd_scan_plain(*args, heads=h, chunk=chunk)
+    got_y, got_s = _tensor_core_plan(*args, heads=h, chunk=chunk,
+                                     terms=terms)
+    share = float((_bf16_steps(got_y, want_y) > 1).float().mean())
+    y_err = _rel(got_y.float().numpy(), want_y.float().numpy())
+    s_err = _rel(got_s.numpy(), want_s.numpy())
+    if within:
+        assert y_err <= 2.0 ** -7
+        assert share <= 1e-3
+        assert s_err <= 1e-6
+    elif terms == 2:
+        assert y_err <= 2.0 ** -7 and share <= 1e-3  # y does not see it
+        assert s_err > 1e-6
+    else:
+        assert share > 1e-2
+        assert s_err > 1e-5
 
 
 def test_ops_ssd_folds_and_dispatches_the_plain_version(monkeypatch):
@@ -231,6 +334,31 @@ def test_work_counts_the_serving_shape():
     assert w["bytes"] == 2 * (2 * 448 * 4096 * 64 + 2 * 4 * 4096 * 64) \
         + 4 * (448 * 4096 + 448 + 448 * 64 * 64)
     assert 4.88e8 <= w["bytes"] <= 4.89e8
+
+
+def test_the_tensor_core_kernel_s_operations_scratch_and_plan():
+    """At zamba2-7b's serving shape the bf16 kernel issues 256 m64n64k16
+    products per chunk (10 tile pairs of C B^T, 4, and scores x, 4 x 3
+    terms; C S, 4 x 3 per row sub-tile; L, 3 per 16 rows): 2.4e11
+    operations, 2.66x ``work``'s count. Its scratch is the carried states
+    (117 MB there) and a zeroed flag per state and the ticket counter; its
+    shared memory, whatever the dims, fits the 232,448 B a block may use
+    once (two buffers of x, B, C)."""
+    ops = tc_operations(448, 4096, 256)
+    assert ops == 448 * 16 * 256 * 2 * 64 * 64 * 16
+    assert 2.65 < ops / work(448, 4096, 64, 64, 256, heads=112)["flops"] \
+        < 2.67
+    # a chunk of 72 is zero-filled to two sub-tiles: 3 pairs, 2 tiles of C S
+    assert tc_operations(6, 144, 72) == \
+        6 * 2 * (3 * 16 + 2 * 12 + 8 * 3) * 2 * 64 * 64 * 16
+    states, flags = tc_scratch(448, 4096, 256, "cpu")
+    assert tuple(states.shape) == (16, 448, 64 * 64)
+    assert states.dtype == torch.float32
+    assert states.numel() * 4 == 117_440_512
+    assert tuple(flags.shape) == (16 * 448 + 1,) and not flags.any()
+    plan = tc_smem_plan()
+    assert plan["total"] == sum(v for k, v in plan.items() if k != "total")
+    assert 232_448 / 2 < plan["total"] <= 232_448
 
 
 @pytest.mark.cuda
