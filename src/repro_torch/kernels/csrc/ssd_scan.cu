@@ -459,30 +459,6 @@ static_assert(kSlotFloats * 4 <= kTerms * kTermBytes,
               "the second warpgroup's part of L^T fits the terms' place");
 static_assert(kCols == kRowBytes / 2, "a tile row is one swizzle row");
 
-// float32 products, sums and differences rounded once, with no fused
-// multiply-add (the plain version's roundings), for both compilers.
-__host__ __device__ inline float mul_rn(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fmul_rn(a, b);
-#else
-  return a * b;
-#endif
-}
-__host__ __device__ inline float add_rn(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fadd_rn(a, b);
-#else
-  return a + b;
-#endif
-}
-__host__ __device__ inline float sub_rn(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fsub_rn(a, b);
-#else
-  return a - b;
-#endif
-}
-
 // cum, w and dt of the chunk of buffer b: floats from kFOff on
 __host__ __device__ constexpr int cum_at(int b) { return b * kMaxChunk; }
 __host__ __device__ constexpr int w_at(int b) { return (2 + b) * kMaxChunk; }
@@ -745,37 +721,6 @@ __host__ __device__ inline void store_state(float* state_out, const Dims& D,
 
 #ifdef __CUDACC__
 
-__device__ __forceinline__ float smem_bf16(const unsigned char* sm,
-                                           std::uint32_t at) {
-  return __bfloat162float(
-      *reinterpret_cast<const __nv_bfloat16*>(sm + swizzle128(at)));
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// cp.async of `bytes` (4 or 8) from src into shared memory at dst, zero
-// fill where `live` is false (nothing is read then; src must still be a
-// valid address)
-template <int Bytes>
-__device__ __forceinline__ void cp_async(std::uint32_t dst, const void* src,
-                                         bool live) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
-               "l"(src), "n"(Bytes), "r"(live ? Bytes : 0)
-               : "memory");
-}
-
 // The loads of chunk `blk` into buffer `buf`: x, B and C by TMA (one
 // thread arms the buffer's mbarrier `bar` with their bytes) or by all
 // threads' cp.async (one group), four bf16 per copy, zero past Q, N and P.
@@ -860,15 +805,6 @@ __device__ __forceinline__ void prep(float* cum, float* w, const float* dts,
   const float a_tot = cum[Q - 1];
   for (int s = lane; s < Qp; s += 32)
     w[s] = s < Q ? __fmul_rn(expf(__fsub_rn(a_tot, cum[s])), dts[s]) : 0.f;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-template <int T, int R>
-__device__ __forceinline__ void fence_terms(std::uint32_t (&terms)[T][R]) {
-#pragma unroll
-  for (int u = 0; u < T; ++u) fence_regs(terms[u]);
 }
 
 // One block per SM, persistent: it takes tickets until none is left, and
@@ -1193,24 +1129,6 @@ int launch_tc(const void* x, const float* dt, const float* A, const void* Bm,
 }
 
 #else  // the host model of ssd_scan_tc_kernel
-
-// An m64n64 accumulator as a [64][64] matrix, to the warpgroup's
-// fragments.
-using Mat = std::vector<float>;
-inline void to_frags(const Mat& m, float (*f)[kFrag]) {
-  for (int t = 0; t < 128; ++t)
-    for (int i = 0; i < kFrag; ++i)
-      f[t][i] = m[frag_row(t, i) * kCols + frag_col(t, i)];
-}
-
-// An A operand from the warpgroup's registers: register r of thread t
-// holds row a_row(t, r), columns a_col(t, r, 0) and a_col(t, r, 1).
-inline void a_from_regs(const std::uint32_t (*regs)[4], float (*a)[kMmaK]) {
-  for (int t = 0; t < 128; ++t)
-    for (int r = 0; r < 4; ++r)
-      for (int h = 0; h < 2; ++h)
-        a[a_row(t, r)][a_col(t, r, h)] = half_of(regs[t][r], h);
-}
 
 // One SS product: A read through its descriptor (K-major), B too.
 inline void model_ss(SmemModel& model, std::uint64_t da, std::uint64_t db,

@@ -1,18 +1,20 @@
 // Parts shared by the port's tensor-core kernels for Hopper (sm_90a):
 // gmm.cu (gmm_tc_kernel), flash_attention_fwd.cu (flash_fwd_tc_kernel),
-// flash_attention_bwd.cu (flash_dq_tc_kernel, flash_dkv_tc_kernel) and
-// ssd_scan.cu (ssd_scan_tc_kernel).
+// flash_attention_bwd.cu (flash_dq_tc_kernel, flash_dkv_tc_kernel),
+// ssd_scan.cu (ssd_scan_tc_kernel) and wkv6_scan.cu (wkv6_scan_tc_kernel).
 //
-// All stage bf16 tiles in shared memory (by TMA, or, in ssd_scan.cu, by
-// the threads' own stores), as rows 128 bytes (64 bf16) wide in the
+// All stage bf16 tiles in shared memory (by TMA, or, in ssd_scan.cu and
+// wkv6_scan.cu, by the threads' own copies), as rows 128 bytes (64 bf16) wide in the
 // 128-byte swizzle, and multiply them with wgmma.mma_async (f32 += bf16 x
 // bf16) reading the operands through shared-memory matrix descriptors.
 // What lives here:
 //   - for both compilers: the descriptor builder, the accumulator fragment
 //     layout and the A fragment of a 16-bit operand in registers, the
 //     128-byte swizzle, bf16 packing and a bf16 pair store, the split of a
-//     float32 fragment into bf16 terms, the tensor map's shape (MapSpec);
-//   - with nvcc: mbarriers, the 3-D TMA load, the m64n128k16 and
+//     float32 fragment into bf16 terms, float32 operations rounded once
+//     (no fused multiply-add), the tensor map's shape (MapSpec);
+//   - with nvcc: mbarriers, the 3-D TMA load, cp.async, a flag's acquire
+//     and release, the wgmma fences, the m64n128k16 and
 //     m64n64k16 products with both operands in shared memory and with A
 //     from registers, and
 //     cuTensorMapEncodeTiled found through cudaGetDriverEntryPoint (no
@@ -21,9 +23,10 @@
 //     TMA boxes (or a thread's stores) into a byte array with the zero
 //     fill and the swizzle written out, and reads each wgmma operand
 //     through its descriptor as
-//     the tensor cores address the swizzled layouts, and model_wgmma, one
-//     product in k order. They cannot show the PTX, the barriers or the
-//     tensor cores' own order of sums.
+//     the tensor cores address the swizzled layouts, model_wgmma, one
+//     product in k order, and the fragments of a whole warpgroup as
+//     matrices (to_frags, a_from_regs). They cannot show the PTX, the
+//     barriers or the tensor cores' own order of sums.
 
 #pragma once
 
@@ -105,6 +108,30 @@ __host__ __device__ inline float half_of(std::uint32_t reg, int h) {
   float x;
   std::memcpy(&x, &bits, 4);
   return x;
+#endif
+}
+
+// float32 products, sums and differences rounded once, with no fused
+// multiply-add (the plain version's roundings), for both compilers.
+__host__ __device__ inline float mul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+__host__ __device__ inline float add_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+__host__ __device__ inline float sub_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
 #endif
 }
 
@@ -221,6 +248,46 @@ template <int N>
 __device__ __forceinline__ void fence_regs(std::uint32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float smem_bf16(const unsigned char* sm,
+                                           std::uint32_t at) {
+  return __bfloat162float(
+      *reinterpret_cast<const __nv_bfloat16*>(sm + swizzle128(at)));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// cp.async of `Bytes` (4, 8 or 16) from src into shared memory at dst, zero
+// fill where `live` is false (nothing is read then; src must still be a
+// valid address)
+template <int Bytes>
+__device__ __forceinline__ void cp_async(std::uint32_t dst, const void* src,
+                                         bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
+               "l"(src), "n"(Bytes), "r"(live ? Bytes : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+template <int T, int R>
+__device__ __forceinline__ void fence_terms(std::uint32_t (&terms)[T][R]) {
+#pragma unroll
+  for (int u = 0; u < T; ++u) fence_regs(terms[u]);
 }
 
 // d (+)= A B, one m64n128k16 with both operands in shared memory: A
@@ -521,6 +588,25 @@ inline void model_wgmma(SmemModel& model, const float (*a)[kMmaK],
       for (int k = 0; k < kMmaK; ++k) s += a[r][k] * B[k * n + c];
       acc[r * n + c] = s;
     }
+}
+
+// An m64nN accumulator as a [64][N] row-major matrix, to the warpgroup's
+// fragments (R = N / 2 registers a thread).
+using Mat = std::vector<float>;
+template <int R>
+inline void to_frags(const Mat& m, float (*f)[R]) {
+  for (int t = 0; t < 128; ++t)
+    for (int i = 0; i < R; ++i)
+      f[t][i] = m[frag_row(t, i) * (2 * R) + frag_col(t, i)];
+}
+
+// An A operand from the warpgroup's registers: register r of thread t
+// holds row a_row(t, r), columns a_col(t, r, 0) and a_col(t, r, 1).
+inline void a_from_regs(const std::uint32_t (*regs)[4], float (*a)[kMmaK]) {
+  for (int t = 0; t < 128; ++t)
+    for (int r = 0; r < 4; ++r)
+      for (int h = 0; h < 2; ++h)
+        a[a_row(t, r)][a_col(t, r, h)] = half_of(regs[t][r], h);
 }
 
 #endif  // __CUDACC__

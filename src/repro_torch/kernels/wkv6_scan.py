@@ -1,10 +1,16 @@
 """Chunked RWKV6 WKV scan: the CUDA kernel's wrapper, its plain PyTorch
-version, the work it does and its shared-memory plan.
+version, the work it does and its shared-memory plans.
 
-``wkv6_scan(r, k, v, logw, u, chunk=)`` launches ``csrc/wkv6_scan.cu`` (one
-thread block per batch-head row, the chunks a loop inside the block, the
-float32 state resident in shared memory; it replaces the Pallas TPU kernel
-``src/repro/kernels/rwkv6.py:69 wkv6_scan`` of the JAX package).
+``wkv6_scan(r, k, v, logw, u, chunk=)`` launches ``csrc/wkv6_scan.cu`` (it
+replaces the Pallas TPU kernel ``src/repro/kernels/rwkv6.py:69 wkv6_scan``
+of the JAX package): in bfloat16 ``wkv6_scan_tc_kernel``, one block per
+(batch-head row, chunk) tile taken by ticket, the chunks of a row in
+parallel and only the carried state passed from tile to tile through a
+ring of two slots per row, the decays taken per sub-chunk of 16 steps so
+that all but the pairs within a sub-chunk become products on the tensor
+cores (``wgmma``); in float32 ``wkv6_scan_kernel``, one block per row on
+the CUDA cores, the chunks a loop inside the block, the float32 state
+resident in shared memory.
 ``wkv6_scan_plain`` computes the same function with the TPU kernel's op
 order, one chunk at a time over all rows at once; it is what a CPU tensor
 runs (``kernels.ops.wkv6``) and what the kernel is held against on the
@@ -16,9 +22,9 @@ take it as float32, as the TPU kernel does). Both return ``(y [BH, S, c]``
 in r's type``, state [BH, c, c]`` float32``)``, ``state[key][value]``.
 
 Bound (``work``): the operations (the exps counted as one each) over the
-card's float32 rate (67 TFLOP/s) or the bytes over 3.35 TB/s, whichever is
-larger: the decayed scores depend on t, s and the channel, so they are no
-matrix product and take the CUDA cores.
+card's bf16 tensor rate (989 TFLOP/s) or the bytes over 3.35 TB/s,
+whichever is larger (bytes, at rwkv6-3b's forward shape). ``tc_operations``
+counts what the bf16 kernel issues on the tensor cores.
 """
 
 from __future__ import annotations
@@ -36,6 +42,16 @@ MAX_C = 64
 PAD = 8
 SMEM_LIMIT = 232_448
 DTYPES = (torch.float32, torch.bfloat16)
+#: bf16 terms of each float32 operand of the tensor-core kernel's products:
+#: the chunk's states (k exp(cum_b - cum), which feed the carried state)
+#: take three, which hold it exactly; the products that feed only y take
+#: two of each operand
+TC_TERMS_STATE = 3
+TC_TERMS_Y = 2
+#: carried states of a row in the tensor-core kernel's ring, each c x c
+#: zero-filled to 64 x 64
+TC_RING = 2
+TC_SLOT = 64 * 64
 
 
 def _check(r, k, v, logw, u, chunk: int) -> tuple:
@@ -80,6 +96,34 @@ def smem_plan(chunk: int, c: int) -> dict:
     return plan
 
 
+def tc_smem_plan() -> dict:
+    """Bytes of dynamic shared memory one block of the bf16 tensor-core
+    kernel asks for, by part (``csrc/wkv6_scan.cu``, ``kTcSmemBytes``),
+    whatever the dims: slack to align to the 1,024-byte swizzle atom; r, k
+    and v of the chunk as bf16 rows of 64 (128 bytes, swizzled), 64 rows
+    each; the chunk's states at the ends of its first three sub-chunks as
+    ``TC_TERMS_Y`` bf16 terms each (64 x 64; the first then takes the
+    carried state's); cum and cum_prev (64 x 68 floats each); the scores
+    within the sub-chunks and the u bonus (64 x 20 floats); the ticket.
+    Two blocks fit an SM."""
+    parts = {"alignment": 1024, "r, k, v": 3 * 64 * 128,
+             "state terms": 3 * TC_TERMS_Y * 64 * 128,
+             "cumsum, cum_prev": 2 * 64 * 68 * 4, "scores": 64 * 20 * 4,
+             "ticket": 16}
+    return {**parts, "total": sum(parts.values())}
+
+
+def tc_scratch(BH: int, device) -> tuple:
+    """The tensor-core kernel's scratch, allocated on the current stream:
+    the ring of carried states ``[BH, TC_RING, 64 * 64]`` float32 (written
+    and read by the kernel only) and ``BH x TC_RING + 1`` int32 zeros (a
+    flag per slot, holding the chunk of the state it was last given plus
+    one, then the ticket counter)."""
+    return (torch.empty((BH, TC_RING, TC_SLOT), dtype=torch.float32,
+                        device=device),
+            torch.zeros(BH * TC_RING + 1, dtype=torch.int32, device=device))
+
+
 def check_smem_fit(chunk: int, c: int) -> dict:
     """``smem_plan``; raises ``ValueError`` when the dims are outside what the
     kernel takes (chunk in [1, 64], c a multiple of 4 in [4, 64]) or the
@@ -101,11 +145,13 @@ def check_smem_fit(chunk: int, c: int) -> dict:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.wkv6_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.wkv6_scan_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.wkv6_scan_smem_bytes.restype = ctypes.c_int
+        lib.wkv6_scan_tc_smem_bytes.argtypes = []
+        lib.wkv6_scan_tc_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -118,9 +164,10 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Raises on tensors the kernel does not take (not on the card, other
     dtypes, a chunk outside [1, 64] or not dividing S, c not a multiple of
     4 in [4, 64], a non-contiguous layout) and on a refused launch; it
-    never runs the plain version. It has no gradient (``kernels.ops.wkv6``
-    refuses a CUDA input that needs one). ``wkv6_scan.launches`` counts
-    launches."""
+    never runs the plain version. In bfloat16 it allocates the tensor-core
+    kernel's scratch (``tc_scratch``) and copies an r, k or v whose data is
+    not 8-byte aligned and a logw not 16-byte aligned. It has no gradient (``kernels.ops.wkv6`` refuses a
+    CUDA input that needs one). ``wkv6_scan.launches`` counts launches."""
     BH, S, c = _check(r, k, v, logw, u, chunk)
     if not r.is_cuda:
         raise ValueError("wkv6_scan launches the CUDA kernel and takes CUDA "
@@ -129,16 +176,25 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    u32 = u.float().contiguous()
-    y = torch.empty_like(r)
-    state = torch.empty((BH, c, c), dtype=torch.float32, device=r.device)
+    bf16 = r.dtype == torch.bfloat16
+    if bf16:  # the tensor-core kernel copies 8 and 16 bytes at a time
+        r, k, v = (t if t.data_ptr() % 8 == 0 else t.clone()
+                   for t in (r, k, v))
+        if logw.data_ptr() % 16:
+            logw = logw.clone()
     lib = _bind(build.load("wkv6_scan"))
     with torch.cuda.device(r.device):
+        u32 = u.float().contiguous()
+        y = torch.empty_like(r)
+        state = torch.empty((BH, c, c), dtype=torch.float32, device=r.device)
+        states, flags = tc_scratch(BH, r.device) if bf16 else (None, None)
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.wkv6_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u32.data_ptr(), y.data_ptr(), state.data_ptr(), BH, S, c, chunk,
-            int(r.dtype == torch.bfloat16), stream)
+            u32.data_ptr(), y.data_ptr(), state.data_ptr(),
+            states.data_ptr() if bf16 else None,
+            flags.data_ptr() if bf16 else None, BH, S, c, chunk, int(bf16),
+            stream)
     if err != 0:
         raise RuntimeError(f"wkv6_scan: kernel launch failed with CUDA error "
                            f"{err}")
@@ -228,3 +284,21 @@ def work(BH: int, S: int, c: int, chunk: int,
     return {"flops": flops, "exps": exps,
             "bytes": item * 4 * BH * S * c + 4 * (BH * S * c + BH * c
                                                   + BH * c * c)}
+
+
+def tc_operations(BH: int, S: int, chunk: int) -> int:
+    """Operations the bf16 kernel issues on the tensor cores (2 per
+    multiply-add of its m64n64k16 products, zero fill and terms included).
+    Per chunk of ``g = ceil(Q / 16)`` sub-chunks: each sub-chunk's own part
+    of the chunk's state, one 16-step slice of ``TC_TERMS_STATE`` products;
+    the scores times v, ``g`` slices of ``TC_TERMS_Y``; r~ S_e, 4 slices of
+    the key channels for each of the ``g - 1`` states at sub-chunk ends;
+    (r exp(cum_prev)) S_prev, 4 slices, in every chunk but a row's first;
+    each of the last two ``TC_TERMS_Y (TC_TERMS_Y + 1) / 2`` products a
+    slice (the terms p, q of the two float32 operands with p + q <
+    ``TC_TERMS_Y``)."""
+    g = -(-chunk // 16)
+    pairs = TC_TERMS_Y * (TC_TERMS_Y + 1) // 2
+    local = TC_TERMS_STATE * g + TC_TERMS_Y * g + pairs * 4 * (g - 1)
+    nc = S // chunk
+    return (BH * nc * local + BH * (nc - 1) * pairs * 4) * 2 * 64 * 64 * 16

@@ -179,10 +179,10 @@ def test_build_targets_the_listed_sources(tmp_path, monkeypatch):
     kernels that include it new names, never a stale build, and leaves the
     others' alone: ``ddpg_update.cuh`` the two learners',
     ``tma_wgmma.cuh`` the tensor-core kernels' (the flash backward, the
-    flash forward, gmm and ssd_scan)."""
+    flash forward, gmm, ssd_scan and wkv6_scan)."""
     learners = ["ddpg_learn", "episode_learn"]
     tensor_cores = ["flash_attention_bwd", "flash_attention_fwd", "gmm",
-                    "ssd_scan"]
+                    "ssd_scan", "wkv6_scan"]
     others = ["flash_attention_bwd", "flash_attention_fwd", "gmm",
               "ssd_scan", "wkv6_scan"]
     assert build.sources() == learners + others

@@ -12,12 +12,13 @@ without a card: the kernels' indexing, shared-memory carve-up, argument
 unpacking and op order. What it cannot check: races, launch limits and the
 card's own ``expf``/``powf`` (the chip check does, ``chip_smoke.py``).
 
-The bfloat16 ``gmm``, flash forward, flash backward and ``ssd_scan`` are
-the exceptions: their tensor-core kernels (TMA or the threads' own staging,
-mbarriers or named barriers, ``wgmma``) have no one-thread form, so without
-nvcc each source's launcher runs its host model of that kernel instead
-(``csrc/gmm.cu``, ``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan.cu``): the same blocks,
+The bfloat16 ``gmm``, flash forward, flash backward, ``ssd_scan`` and
+``wkv6_scan`` are the exceptions: their tensor-core kernels (TMA or the
+threads' own staging, mbarriers or named barriers, ``wgmma``) have no
+one-thread form, so without nvcc each source's launcher runs its host model
+of that kernel instead (``csrc/gmm.cu``, ``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan.cu``,
+``csrc/wkv6_scan.cu``): the same blocks,
 stage offsets, box coordinates, wgmma descriptors and epilogue, with TMA's
 zero fill and 128-byte swizzle written out and each product read through
 its descriptors as the tensor cores address the swizzled layouts; for the
@@ -29,12 +30,17 @@ into swizzled tiles, the two warpgroups' halves of the chunk's own state,
 the carried states through their slots and flags, the decayed scores in
 the accumulator fragment, the three-term packing of the scores, the
 state and x w, and at P = 64 y's transpose within each quad of threads
-(its shuffles exchanged between the modelled lanes). What the CPU no
-longer covers there: the PTX, the barriers (and, for ``ssd_scan``, the
-blocks running at once and waiting on their flags), the accumulator
-fragment layout on the card and the tensor cores' own order of sums
-(``chip_smoke.py``'s ``check_gmm``, ``check_flash``, ``check_flash_bwd``
-and ``check_ssd`` hold those on the card).
+(its shuffles exchanged between the modelled lanes); for ``wkv6_scan`` the
+tickets, the 8- or 16-byte copies into swizzled tiles, the channels'
+cumsums, the pairs within each sub-chunk and the u bonus on the CUDA cores,
+the chunk's states at its sub-chunk ends and their two-term tiles, the
+three- and two-term packing of every A fragment, and the carried states
+through the ring's slots and flags. What the CPU no longer covers there:
+the PTX, the barriers (and, for the scans, the blocks running at once and
+waiting on their flags), the accumulator fragment layout on the card and
+the tensor cores' own order of sums (``chip_smoke.py``'s ``check_gmm``,
+``check_flash``, ``check_flash_bwd``, ``check_ssd`` and ``check_wkv`` hold
+those on the card).
 
 Tolerances (measured): ``ddpg_learn`` within 1e-6 x max|plain| per tensor
 (measured 1.0e-7); ``episode_learn`` knob indices, restarts, keys, counts
@@ -59,8 +65,9 @@ model; measured at most 2.6e-9 and 2.0e-7, with no element more than one
 bf16 step away); ``wkv6_scan`` y and state within 2e-6 relative in float32
 (measured 2.7e-7 and 2.1e-8, strong decay included: the cumsums agree
 bitwise, the sums of products differ in order), y within one bf16 ulp of its
-largest value and the float32 state within 2e-6 in bfloat16 (measured 1.1e-4
-and 3.6e-8: a few elements of y round the other way).
+largest value and the float32 state within 2e-6 in bfloat16 (the
+tensor-core kernel's host model; measured at most 3.3e-3 and 2.1e-7, with
+at most 1.1e-4 of the elements of y more than one bf16 step away).
 """
 
 import ctypes
@@ -99,6 +106,8 @@ from repro_torch.kernels.ssd_scan import tc_scratch as ssd_tc_scratch
 from repro_torch.kernels.ssd_scan import tc_smem_plan as ssd_tc_smem_plan
 from repro_torch.kernels.wkv6_scan import _bind as wkv_bind
 from repro_torch.kernels.wkv6_scan import smem_plan as wkv_smem_plan
+from repro_torch.kernels.wkv6_scan import tc_scratch as wkv_tc_scratch
+from repro_torch.kernels.wkv6_scan import tc_smem_plan as wkv_tc_smem_plan
 from repro_torch.kernels.wkv6_scan import wkv6_scan_plain
 
 STUB = r"""
@@ -734,7 +743,8 @@ def test_wkv6_scan_source_matches_plain(emulated, bh, s, c, chunk, w0,
     y = torch.empty_like(r)
     state = torch.empty((bh, c, c))
     lib = wkv_bind(emulated["wkv6_scan"])
-    ptrs = [t.data_ptr() for t in (r, k, v, logw, u, y, state)]
+    scratch = wkv_tc_scratch(bh, "cpu")
+    ptrs = [t.data_ptr() for t in (r, k, v, logw, u, y, state, *scratch)]
     bf16 = int(dtype == torch.bfloat16)
     assert lib.wkv6_scan_launch(*ptrs, bh, s, c, chunk, bf16, None) == 0
     assert lib.wkv6_scan_launch(*ptrs, bh, s, c, 7, bf16, None) == -1
@@ -744,6 +754,84 @@ def test_wkv6_scan_source_matches_plain(emulated, bh, s, c, chunk, w0,
     for q in (1, 20, 24, 61, 64):
         assert lib.wkv6_scan_smem_bytes(q, c) == \
             wkv_smem_plan(q, c)["total"]
+
+
+def _wkv_run(lib, shape, seed):
+    """bf16 inputs from numpy as the source test draws them; the launcher's
+    y and state (NaN where it wrote nothing), the plain version's, and the
+    scratch."""
+    bh, s, c, chunk, w0 = shape
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.tensor(rng.standard_normal((bh, s, c)) * 0.5,
+                            dtype=torch.bfloat16) for _ in range(3))
+    logw = -torch.tensor(np.exp(np.clip(
+        rng.standard_normal((bh, s, c)) + w0, -8, 6)), dtype=torch.float32)
+    u = torch.tensor(rng.standard_normal((bh, c)) * 0.5, dtype=torch.float32)
+    want = wkv6_scan_plain(r, k, v, logw, u, chunk=chunk)
+    y = torch.full_like(r, float("nan"))
+    state = torch.full((bh, c, c), float("nan"))
+    scratch = wkv_tc_scratch(bh, "cpu")
+    err = lib.wkv6_scan_launch(
+        *(t.data_ptr() for t in (r, k, v, logw, u, y, state, *scratch)),
+        bh, s, c, chunk, 1, None)
+    return err, (y, state), want, scratch
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 1024, 64, 64, 0.0),   # 16 chunks: the ring's two slots reused
+    (3, 120, 16, 24, 0.0),    # the smoke head size: a sub-chunk and a half
+    (2, 96, 12, 48, 0.0),     # rows of 24 bytes: copied 8 bytes at a time
+    (2, 68, 20, 17, 0.0),     # a chunk one step past a sub-chunk
+    (2, 256, 64, 64, 5.0),    # strong decay
+    (1, 8, 4, 1, 0.0),        # a step a chunk
+])
+def test_wkv6_tensor_core_model_matches_plain(emulated, shape):
+    """The bfloat16 launcher's host model of the tensor-core kernel over
+    many chunks per row (every state but the last published to the ring,
+    flagged and read back by the next chunk's block, the last one written
+    out), at chunks that are not a multiple of the 16-step sub-chunk and
+    head sizes below 64, and under strong decay; every output written (the
+    buffers start NaN), y within one bf16 ulp of its largest value with at
+    most 1e-3 of the elements more than one bf16 step away, the float32
+    state within 2e-6 (measured y at most 3.3e-3, at most 1.1e-4 of the
+    elements over one step, the state at most 2.1e-7); every ticket taken
+    and each slot's flag holding the chunk of its last state plus one."""
+    err, got, want, (_, flags) = _wkv_run(wkv_bind(emulated["wkv6_scan"]),
+                                          shape, seed=sum(shape[:4]))
+    assert err == 0
+    y, state = got
+    assert bool(torch.isfinite(y.float()).all())
+    assert bool(torch.isfinite(state).all())
+    assert _rel(y, want[0]) <= 2.0 ** -7
+    assert float((_bf16_steps(y, want[0]) > 1).float().mean()) <= 1e-3
+    assert _rel(state, want[1]) <= 2e-6
+    bh, s, _, chunk, _ = shape
+    nc = s // chunk
+    assert int(flags[-1]) == nc * bh
+    want_flags = torch.zeros(bh, 2, dtype=torch.int32)
+    for c in range(max(nc - 3, 0), nc - 1):  # the last state in each slot
+        want_flags[:, c % 2] = c + 1
+    assert torch.equal(flags[:-1].view(bh, 2), want_flags)
+
+
+def test_wkv6_tensor_core_contract_and_plan(emulated):
+    """The bfloat16 launcher takes a chunk in [1, 64] that divides S and C
+    a multiple of 4 in [4, 64], and refuses the rest with -1 before it
+    reads anything, and r, k, v not 8-byte aligned or logw not 16-byte
+    aligned with -2; the shared
+    memory it asks for is ``tc_smem_plan``'s, two blocks of which fit the
+    233,472 bytes of an SM."""
+    lib = wkv_bind(emulated["wkv6_scan"])
+    for BH, S, C, Q in ((2, 130, 64, 65), (2, 100, 64, 64), (2, 128, 66, 64),
+                        (2, 128, 0, 64), (2, 128, 68, 64), (2, 128, 64, 0),
+                        (0, 128, 64, 64), (2, 0, 64, 1)):
+        assert lib.wkv6_scan_launch(*[None] * 9, BH, S, C, Q, 1, None) == -1
+    assert lib.wkv6_scan_launch(2, *[None] * 8, 2, 128, 64, 64, 1,
+                                None) == -2
+    assert lib.wkv6_scan_launch(None, None, None, 8, *[None] * 5, 2, 128,
+                                64, 64, 1, None) == -2
+    assert lib.wkv6_scan_tc_smem_bytes() == wkv_tc_smem_plan()["total"]
+    assert 2 * (wkv_tc_smem_plan()["total"] + 1024) <= 233_472
 
 
 def test_the_emulation_covers_every_source():

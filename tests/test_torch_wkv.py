@@ -30,6 +30,17 @@ Tolerances, as max|port - ref| / max|ref| (measured on the CPU):
 The CUDA kernel itself runs only on a card (the ``cuda`` test below, and
 ``chip_smoke.py``); its source runs on the CPU in
 ``tests/test_torch_kernel_emulation.py``.
+
+The bf16 kernel's precision plan is pinned here against the card's bounds
+(``_tensor_core_plan``): the decays taken per sub-chunk of 16 steps, the
+pairs within a sub-chunk on the CUDA cores as the plain version computes
+them, every other pair through the chunk's own states at the sub-chunk
+ends; the chunk's states (which feed the carried state) from three bf16
+terms of ``k exp(cum_b - cum)``, the products that feed only y from two
+terms of each float32 operand. Three terms for y as well change nothing
+the bounds see; two terms for the states put the float32 state over 1e-6
+(``chip_smoke.py``'s ``WKV_BF16_STATE_RTOL``), and one term puts y over
+its bounds too.
 """
 
 import jax.numpy as jnp
@@ -41,13 +52,16 @@ from repro.kernels import ref as jref
 from repro.kernels.rwkv6 import wkv6_scan as jwkv6_scan
 from repro_torch.kernels import ops
 from repro_torch.kernels.wkv6_scan import check_smem_fit, cumsum_rounded, \
-    smem_plan, wkv6_scan, wkv6_scan_plain, work
+    smem_plan, tc_operations, tc_scratch, tc_smem_plan, wkv6_scan, \
+    wkv6_scan_plain, work
 
 #: (B, S, H, c, chunk, w0): the reference test's three shapes, and strong
 #: decay
 CASES = [(1, 64, 2, 16, 32, 0.0), (2, 128, 2, 32, 64, 0.0),
          (1, 256, 4, 64, 64, 0.0), (1, 128, 2, 64, 64, 5.0)]
 STRONG = 5.0
+#: steps of the bf16 kernel's sub-chunk: pairs within one keep one exp each
+SUB = 16
 
 
 def _rel(a, b) -> float:
@@ -92,6 +106,95 @@ def _exact(r, k, v, logw, u):
 def _round(a, dtype: str) -> np.ndarray:
     """``a`` rounded to ``dtype`` and back to float32."""
     return np.array(jnp.asarray(a, getattr(jnp, dtype)).astype(jnp.float32))
+
+
+def _split(x: torch.Tensor, terms: int) -> list:
+    """x (float32) as ``terms`` bf16 terms, each the rounding of what the
+    terms before it left (``csrc/tma_wgmma.cuh::split_terms``), as float64
+    tensors (three terms hold a float32 exactly)."""
+    parts, rest = [], x
+    for _ in range(terms):
+        part = rest.bfloat16().float()
+        parts.append(part.double())
+        rest = rest - part
+    return parts
+
+
+def _times_exact(a: torch.Tensor, b: torch.Tensor, terms: int):
+    """a @ b, a (float32) as ``terms`` bf16 terms, b exact in bf16 (float64),
+    summed exactly (float64)."""
+    return sum(part @ b for part in _split(a, terms))
+
+
+def _times_split(a: torch.Tensor, b: torch.Tensor, terms: int):
+    """a @ b of two float32 operands as ``terms`` bf16 terms each, the
+    products of terms p, q with p + q < ``terms`` summed exactly
+    (float64)."""
+    A, B = _split(a, terms), _split(b, terms)
+    return sum(A[p] @ B[q] for p in range(terms) for q in range(terms - p))
+
+
+def _tensor_core_plan(r, k, v, logw, u, *, chunk: int, terms: int = 3,
+                      y_terms: int = 2):
+    """The bf16 tensor-core kernel's arithmetic, in ``wkv6_scan_plain``'s op
+    order where the two share it, every product summed exactly (float64)
+    and y rounded once, as a tensor core's other order of sums may at best:
+    the cumsum and cum_prev as the plain version; the pairs s < t within a
+    sub-chunk of ``SUB`` steps and the u bonus in float32 as the plain
+    version computes them, then as ``y_terms`` bf16 terms times v; the
+    chunk's state at the end e of each sub-chunk g chained as the state is
+    across chunks, S_e = exp(cum_e - cum_e') S_e' + U_g with U_g = sum_{s
+    in g} (k_s exp(cum_e - cum_s)) v_s^T from ``terms`` terms of its k
+    exp(cum_e - cum); for t in sub-chunk g + 1, r_t exp(min(cum_prev_t -
+    cum_e, 0)) times S_e, both float32 operands as ``y_terms`` terms;
+    (r exp(cum_prev)) S_prev likewise; the carried state exp(cum_tot)
+    S_prev + L as the plain version, L the chunk's state at its last
+    step."""
+    BH, S, c = r.shape
+    Q = chunk
+    t = torch.arange(Q, device=r.device)
+    within = (t[:, None] // SUB == t[None, :] // SUB) & \
+        (t[None, :] < t[:, None])
+    u32 = u.float()[:, None, :]
+    state = torch.zeros((BH, c, c), device=r.device)
+    y = torch.empty_like(r)
+    for c0 in range(0, S, Q):
+        rc, kc, vc = (x[:, c0:c0 + Q].float() for x in (r, k, v))
+        vd = vc.double()
+        lw = logw[:, c0:c0 + Q]
+        cum = cumsum_rounded(lw, dim=1)
+        cum_prev = cum - lw
+        dec = torch.where(within[:, :, None], torch.exp(torch.clamp(
+            cum_prev[:, :, None, :] - cum[:, None, :, :], max=0.0)), 0.0)
+        scores = (rc[:, :, None, :] * dec * kc[:, None, :, :]).sum(-1)
+        scores = scores + torch.diag_embed((rc * u32 * kc).sum(-1))
+        yc = _times_exact(scores, vd, y_terms)
+        for lo in range(0, Q, SUB):
+            e = min(lo + SUB, Q) - 1
+            kd = kc[:, lo:e + 1] * torch.exp(cum[:, e:e + 1]
+                                             - cum[:, lo:e + 1])
+            part = _times_exact(kd.transpose(1, 2), vd[:, lo:e + 1],
+                                terms).float()
+            local = part if lo == 0 else torch.exp(
+                cum[:, e:e + 1] - cum[:, lo - 1:lo]).transpose(1, 2) \
+                * local + part
+            rows = slice(e + 1, e + 1 + SUB)
+            rt = rc[:, rows] * torch.exp(torch.clamp(
+                cum_prev[:, rows] - cum[:, e:e + 1], max=0.0))
+            yc[:, rows] += _times_split(rt, local, y_terms)
+        yc += _times_split(rc * torch.exp(cum_prev), state, y_terms)
+        y[:, c0:c0 + Q] = yc.float().to(r.dtype)
+        state = torch.exp(cum[:, -1:]).transpose(1, 2) * state + local
+    return y, state
+
+
+def _bf16_steps(a, b):
+    """Per element, |a - b| in units of the bfloat16 spacing at b (as
+    ``chip_smoke.py`` counts them)."""
+    b = b.float()
+    _, exp = torch.frexp(b)
+    step = torch.ldexp(torch.ones_like(b), exp - 8).clamp_min(2.0 ** -133)
+    return (a.float() - b).abs() / step
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -304,6 +407,76 @@ def test_work_counts_the_forward_shape():
     assert w["bytes"] == 2 * 4 * 160 * 4096 * 64 \
         + 4 * (160 * 4096 * 64 + 160 * 64 + 160 * 64 * 64)
     assert 5.05e8 <= w["bytes"] <= 5.07e8
+
+
+@pytest.mark.parametrize("terms,y_terms", [(3, 2), (3, 3), (2, 2), (1, 1)],
+                         ids=["shipped", "three", "two", "one"])
+@pytest.mark.parametrize("shape", [(2, 256, 4, 64, 64, 0.0),
+                                   (2, 120, 3, 16, 24, 0.0),
+                                   (1, 256, 4, 64, 64, STRONG)],
+                         ids=["rwkv6-3b", "smoke", "strong"])
+def test_the_tensor_core_precision_plan(shape, terms, y_terms):
+    """Against ``wkv6_scan_plain`` in bf16 (the card's bounds: y within one
+    bf16 step of its largest value, at most 1e-3 of the elements more than
+    one bf16 step apart, the float32 state within 1e-6), at rwkv6-3b's
+    chunk 64 and head size 64, the smoke head size 16 at chunk 24, and
+    strong decay. The shipped plan (three terms for the chunk's states, two
+    for y's products) holds (measured y 1.5e-3-1.8e-3, 4.6e-5-1.7e-4 over
+    one step, state 0-6.3e-8), as do three terms throughout (y 0-5.5e-5,
+    none over one step: y's bounds do not tell its two terms from three);
+    two terms throughout keep y within its bounds but put the state over
+    1e-6 (1.5e-6-2.0e-6) except under strong decay, where the state is
+    all but the last step's k v, near exact in any terms (measured
+    6.0e-12); one term puts over 10x that share of y over one step
+    (5.0e-2-8.4e-2) and, except under strong decay, the state over 1e-5
+    (1.1e-3-1.2e-3; strong decay 3.6e-8)."""
+    B, S, H, c, chunk, w0 = shape
+    r, k, v, logw, u = _inputs(B, S, H, c, w0, seed=6)
+    args = [torch.from_numpy(a) for a in _fold(r, k, v, logw)] + \
+        [torch.from_numpy(_fold_u(u, B))]
+    for i in (0, 1, 2, 4):
+        args[i] = args[i].bfloat16()
+    want_y, want_s = wkv6_scan_plain(*args, chunk=chunk)
+    got_y, got_s = _tensor_core_plan(*args, chunk=chunk, terms=terms,
+                                     y_terms=y_terms)
+    share = float((_bf16_steps(got_y, want_y) > 1).float().mean())
+    y_err = _rel(got_y.float().numpy(), want_y.float().numpy())
+    s_err = _rel(got_s.numpy(), want_s.numpy())
+    if terms == 3:
+        assert y_err <= 2.0 ** -7 and share <= 1e-3 and s_err <= 1e-6
+    elif terms == 2:
+        assert y_err <= 2.0 ** -7 and share <= 1e-3  # y does not see it
+        assert s_err > 1e-6 if w0 != STRONG else s_err <= 1e-6
+    else:
+        assert share > 1e-2
+        assert s_err > 1e-5 if w0 != STRONG else s_err <= 1e-6
+
+
+def test_the_tensor_core_kernel_s_operations_scratch_and_plan():
+    """At rwkv6-3b's forward shape (BH 160, S 4096, chunk 64) the bf16
+    kernel issues 56 m64n64k16 products per chunk (each sub-chunk's part
+    of the chunk's state, 4 slices x 3 terms; the scores x v, 4 x 2; r~
+    S_e, 12 x 3) and 12 more (r exp(cum_prev) S_prev, 4 x 3) in every
+    chunk but a row's first: 9.1e10 operations, 4.5x ``work``'s count. Its
+    scratch is a ring of two carried states per row (5.2 MB there) and a
+    zeroed flag per slot and the ticket counter; its shared memory,
+    whatever the dims, fits an SM twice."""
+    n = tc_operations(160, 4096, 64)
+    assert n == 160 * (64 * 56 + 63 * 12) * 2 * 64 * 64 * 16
+    assert 4.4 < n / work(160, 4096, 64, 64)["flops"] < 4.5
+    # a chunk of 24: two sub-chunks (one state at step 15), 2 x 3 + 2 x 2
+    # + 4 x 3 products, and 4 x 3 after the first chunk
+    assert tc_operations(6, 120, 24) == \
+        6 * (5 * 22 + 4 * 12) * 2 * 64 * 64 * 16
+    states, flags = tc_scratch(160, "cpu")
+    assert tuple(states.shape) == (160, 2, 64 * 64)
+    assert states.dtype == torch.float32
+    assert states.numel() * 4 == 5_242_880
+    assert tuple(flags.shape) == (2 * 160 + 1,) and not flags.any()
+    plan = tc_smem_plan()
+    assert plan["total"] == sum(v for k, v in plan.items() if k != "total")
+    assert plan["total"] == 114_704
+    assert 2 * (plan["total"] + 1024) <= 233_472
 
 
 @pytest.mark.cuda
