@@ -10,6 +10,12 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   power limit;
   2. build        every CUDA source of ``src/repro_torch/kernels/csrc``
                   compiled (one ``nvcc`` per source, all started together);
+                  the learner kernels (``ddpg_learn_kernel``,
+                  ``episode_learn_kernel``) read from their libraries by
+                  ``cuobjdump``: registers, stack and local bytes (held: 0)
+                  and static shared bytes, and the shared memory a block
+                  holds once opted into each space's ``smem_plan`` (held
+                  equal to the plan: the whole learner state resident);
                   the tensor-core kernels (``gmm_tc_kernel``,
                   ``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``,
                   ``flash_dkv_tc_kernel``, ``ssd_scan_tc_kernel``) read
@@ -195,7 +201,9 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   the WKV state left finite in the compute type (bf16);
  18. timing       CUDA-event medians of every kernel and its plain version:
                   the learners at N = 1 and N = 1024 (the episode's plain
-                  version at N = 1 only, its pre-draw timed apart), the flash
+                  version at N = 1 only, its pre-draw timed apart; at N = 1
+                  beside a latency floor: each dependent phase's longest
+                  FMA chain times the FMA latency plus a barrier), the flash
                   forward at the serving shapes of Yi-9B, zamba2-7b and
                   deepseek-moe-16b beside PyTorch's
                   ``scaled_dot_product_attention`` on the same tensors (with
@@ -219,9 +227,9 @@ Then the whole run's seconds, the ``{"kernels": [...]}`` line,
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
-Phases 1-17 and the matching timings are the earlier slices'. The bf16
-``ssd_scan`` is now a tensor-core kernel (phases 2, 13, 14 and 18), and
-phase 10 holds the second training step's layers, which it reported.
+Phases 1-17 and the matching timings are the earlier slices'. The
+learner kernels now hold the whole learner state in shared memory and give
+the first design's bits (phases 2 and 18 read their build and floor).
 
     python3 chip_smoke.py --profile
 
@@ -295,6 +303,11 @@ WINDOW_RTOL_P90 = 1e-5
 TUNE_WINDOW_RTOL = 1e-5
 EP_STEPS = 30
 WARMUP_STEPS = 8
+#: a dependent float32 FMA's latency on Hopper, and one __syncthreads of
+#: the learners' 512-thread block on an H100 (clock64 around 1,000 of them),
+#: in cycles: the learners' latency floor
+FMA_LATENCY_CYCLES = 4
+BARRIER_CYCLES = 45
 #: published H100 SXM peaks (FP32 FLOP/s, HBM3 bytes/s)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -473,56 +486,114 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def tc_build(log: dict, name: str, kernel: str) -> dict:
-    """The tensor-core kernel ``kernel`` of ``csrc/<name>.cu`` as built,
-    read from its library in every run by ``cuobjdump``: its registers and
-    its stack and local bytes (``-res-usage``; a spill would show there)
-    and the count of ``HGMMA`` instructions in its own SASS; beside them its
-    ``ptxas`` lines where this run compiled it (None where the library was
-    built before). Raises unless the kernel is found with no stack or local
-    bytes and at least one ``HGMMA``."""
-    import re
+def cuobjdump(name: str, flag: str) -> str:
     import shutil
 
     from repro_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = str(build._target(name))
+    return subprocess.run([tool, flag, str(build._target(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
 
-    def dump(flag: str) -> str:
-        return subprocess.run([tool, flag, lib], capture_output=True,
-                              text=True, timeout=120, check=True).stdout
+
+def kernel_build(log: dict, name: str, kernel: str) -> dict:
+    """The kernel ``kernel`` of ``csrc/<name>.cu`` as built, read from its
+    library in every run by ``cuobjdump -res-usage``: its registers, its
+    stack and local bytes (a spill would show there) and its ``SHARED``
+    bytes; beside them its ``ptxas`` lines where this run compiled it (None
+    where the library was built before). Raises unless the kernel is found
+    with no stack or local bytes."""
+    import re
 
     usage = None
-    lines = dump("-res-usage").splitlines()
+    lines = cuobjdump(name, "-res-usage").splitlines()
     for head, body in zip(lines, lines[1:]):
         if head.strip().startswith("Function") and kernel in head:
             usage = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", body)}
     if usage is None:
         raise AssertionError(f"cuobjdump -res-usage finds no {kernel} in "
-                             f"{lib}")
+                             f"the library of {name}")
     ptxas = None
     text = log.get(name, {}).get("ptxas", "")
     for entry in text.split("Compiling entry function")[1:]:
         if kernel in entry.splitlines()[0]:
             ptxas = [ln.strip() for ln in entry.splitlines()
                      if "spill" in ln or "registers" in ln]
+    facts = {"registers": usage.get("REG"),
+             "local_bytes": usage.get("STACK", 0) + usage.get("LOCAL", 0),
+             "cuobjdump_shared_bytes": usage.get("SHARED", 0), "ptxas": ptxas}
+    if facts["local_bytes"]:
+        raise AssertionError(f"{kernel} uses stack or local memory "
+                             f"(spills): {usage}")
+    return facts
+
+
+def tc_build(log: dict, name: str, kernel: str) -> dict:
+    """``kernel_build`` of a tensor-core kernel, with the count of ``HGMMA``
+    instructions in its own SASS. Raises unless it has at least one."""
     hgmma, inside = 0, False
-    for line in dump("-sass").splitlines():
+    for line in cuobjdump(name, "-sass").splitlines():
         if "Function :" in line:
             inside = kernel in line
         elif inside and "HGMMA" in line:
             hgmma += 1
-    facts = {"registers": usage.get("REG"),
-             "local_bytes": usage.get("STACK", 0) + usage.get("LOCAL", 0),
-             "hgmma": hgmma, "ptxas": ptxas}
-    if facts["local_bytes"]:
-        raise AssertionError(f"{kernel} uses stack or local memory "
-                             f"(spills): {usage}")
-    if facts["hgmma"] == 0:
+    if hgmma == 0:
         raise AssertionError(f"{kernel} has no HGMMA instruction: its bf16 "
                              f"products are not on the tensor cores")
-    return facts
+    facts = kernel_build(log, name, kernel)
+    return {"registers": facts["registers"],
+            "local_bytes": facts["local_bytes"], "hgmma": hgmma,
+            "ptxas": facts["ptxas"]}
+
+
+def learner_build(log: dict, configs: dict, n_samples: int) -> dict:
+    """``kernel_build`` of the two learner kernels, with the shared memory
+    a block of each holds once opted into each space's ``smem_plan`` (its
+    static and dynamic bytes as the runtime reports them), held equal to
+    the plan's total: the whole learner state resident, nothing beside it.
+    (``cuobjdump``'s ``SHARED`` of every kernel of the port reads 1,024:
+    the block's reserved kilobyte on sm_90, which no plan counts.)"""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ddpg_learn as dl
+    from repro_torch.kernels import episode_learn as el
+
+    out = {}
+    for name, module in (("ddpg_learn", dl), ("episode_learn", el)):
+        facts = kernel_build(log, name, f"{name}_kernel")
+        lib = module._bind(build.load(name))
+        facts["shared_bytes"], facts["smem_plan_total"] = {}, {}
+        for space, cfg in configs.items():
+            plan = dl.smem_plan(cfg) if module is dl else el.smem_plan(
+                cfg.state_dim, cfg.action_dim, cfg.hidden, cfg.batch_size,
+                CAPACITY, n_samples)
+            got = getattr(lib, f"{name}_shared_bytes")(plan["total"])
+            facts["shared_bytes"][space] = got
+            facts["smem_plan_total"][space] = plan["total"]
+            if got != plan["total"]:
+                raise AssertionError(
+                    f"{name}_kernel holds {got} B of shared memory per block "
+                    f"on {space}, its smem_plan {plan['total']} B")
+        out[f"{name}_kernel"] = facts
+    return out
+
+
+def learner_floor_ms(cfg, updates: int, steps: int = 0) -> float:
+    """A latency floor of one session's launch: the dependent phases of one
+    update (``csrc/ddpg_update.cuh``, P0-P17), each its longest FMA chain
+    times the FMA latency plus one barrier, times the updates; for an
+    episode (``steps`` > 0) per step also the act forward's three phases and
+    the env step's barrier. At the card's highest SM clock."""
+    k, m, b, h = cfg.state_dim, cfg.action_dim, cfg.batch_size, \
+        cfg.hidden[0]
+    kc = k + m
+    chains = [0, kc, h, h, kc, h, h, 0, h, b, kc, h, h, h, h, m, h, b]
+    update = sum(c * FMA_LATENCY_CYCLES + BARRIER_CYCLES for c in chains)
+    cycles = updates * update
+    if steps:
+        act = sum(c * FMA_LATENCY_CYCLES + BARRIER_CYCLES for c in (k, h, h))
+        cycles = steps * (act + BARRIER_CYCLES + cycles)
+    return cycles / sm_clock_max_hz() * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -2993,6 +3064,8 @@ def phase_timing(configs, smi: str) -> list:
                    else "bytes",
                    "flops": w["flops"], "bytes": w["bytes"],
                    "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
+                   "latency_floor_ms": learner_floor_ms(cfg, UPDATES)
+                   if n == 1 else None,
                    "library_ms": None, "card": smi}
             emit(row)
             rows.append(row)
@@ -3047,6 +3120,8 @@ def phase_timing_episode(smi: str) -> list:
                    "flops": w["flops"], "bytes": w["bytes"],
                    "bound_share": max(flops_ms, bytes_ms) / kernel_ms,
                    "ms_per_step": kernel_ms / t,
+                   "latency_floor_ms": learner_floor_ms(
+                       spec.cfg, spec.num_updates, t) if n == 1 else None,
                    "library_ms": None, "card": smi}
             emit(row)
             rows.append(row)
@@ -3098,11 +3173,17 @@ def main() -> int:
                  for kernel in ("flash_dq_tc_kernel", "flash_dkv_tc_kernel")}
     ssd_build = tc_build(log, "ssd_scan", "ssd_scan_tc_kernel")
     wkv_build = tc_build(log, "wkv6_scan", "wkv6_scan_tc_kernel")
+    configs = {"2d": DDPGConfig(state_dim=12, action_dim=2),
+               "8d": DDPGConfig(state_dim=12, action_dim=8)}
+    from repro_torch.envs import LustreSimEnv
+    n_samples = LustreSimEnv("seq_write", seed=0).to_model_env(
+        device="cpu").model.n_samples
+    learners = learner_build(log, configs, n_samples)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in log.items()},
-          "gmm_tc_kernel": gmm_build, "flash_fwd_tc_kernel": flash_build,
-          **bwd_build, "ssd_scan_tc_kernel": ssd_build,
-          "wkv6_scan_tc_kernel": wkv_build})
+          **learners, "gmm_tc_kernel": gmm_build,
+          "flash_fwd_tc_kernel": flash_build, **bwd_build,
+          "ssd_scan_tc_kernel": ssd_build, "wkv6_scan_tc_kernel": wkv_build})
 
     if sys.argv[1:] == ["--drift"]:
         phase_drift()
@@ -3113,8 +3194,6 @@ def main() -> int:
     if sys.argv[1:] == ["--profile-train"]:
         phase_profile_train()
         return 0
-    configs = {"2d": DDPGConfig(state_dim=12, action_dim=2),
-               "8d": DDPGConfig(state_dim=12, action_dim=8)}
     err = phase_check(configs)
     ep_err = phase_check_episode()
     tunes = [phase_tune("2d", 30), phase_tune("8d", 30)]

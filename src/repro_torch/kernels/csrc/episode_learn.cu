@@ -29,16 +29,21 @@
 // the f32 operation rate (kernels/episode_learn.py::work counts it); at
 // N = 1 the kernel is latency-bound: one block runs T * U dependent updates.
 //
-// Design (simple and right first): one block per session; the replay window
-// lives in shared memory for the whole episode (core of the gather), the
-// learner state stays in device memory (as in ddpg_learn.cu); steps 2-6 and
-// 8 run on thread 0, in the reference's order, every serial fold (the
-// sample means, the objective) left to right. Products and sums are written
-// with the _rn intrinsics, so nvcc contracts nothing: where the reference's
-// compiled code rounds a*b + c once (the quantization) the kernel writes
-// __fmaf_rn. Transcendentals are CUDA's IEEE-mode expf, exp2f, log2f and
-// powf (no fast math). Shared-memory residency of the learner state,
-// cp.async streaming of the minibatch rows and tensor cores are later work.
+// Design: one block of kThreads per session, one block per SM. Shared
+// memory holds, at the offsets of kernels/episode_learn.py::smem_plan, the
+// session's whole learner state (parameters, targets and both Adam moments,
+// loaded once and written back once), the learner's scratch, the replay
+// window for the whole episode, the state and metric rows and the env
+// step's per-sample scratch. The act forward and the env step's rows use
+// the learner's scratch, which no update needs between steps. Steps 2-6
+// and 8 run on thread 0, in the reference's order, every serial fold (the
+// sample means, the objective) left to right. Update u + 1's minibatch
+// indices come in by cp.async while update u runs, and each update
+// gathers its rows from the window in shared memory (ddpg_update.cuh).
+// Products and sums are written with the _rn intrinsics, so nvcc contracts
+// nothing: where the reference's compiled code rounds a*b + c once (the
+// quantization) the kernel writes __fmaf_rn. Transcendentals are CUDA's
+// IEEE-mode expf, exp2f, log2f and powf (no fast math).
 
 #include "ddpg_update.cuh"
 
@@ -96,9 +101,9 @@ struct Ptrs {
 
 struct Episode {
   int t_steps, cap, n_samples, draws, learn, updates;
-  // offsets in floats of the shared-memory parts after the learner's, from
-  // kernels/episode_learn.py::smem_plan
-  int off_window, off_minibatch, off_actor, off_state, off_samples;
+  // offsets in floats of the shared-memory parts after the learner state,
+  // from kernels/episode_learn.py::smem_plan
+  int off_learner, off_window, off_state, off_samples;
 };
 
 __device__ __forceinline__ float fmul(float a, float b) {
@@ -282,6 +287,7 @@ __device__ float lustre_step(const Space& S, const EnvConst& E,
     const float tput = fmul(t_run, sf);
     const float iops_s = fmul(iops_run, sf);
     float jit[6];
+#pragma unroll
     for (int q = 0; q < 6; ++q) jit[q] = expf(fmul(0.05f, z_met[q * n + i]));
     const float write_mb = fmul(tput, wf);
     const float read_mb = fsub(tput, write_mb);
@@ -322,6 +328,7 @@ __device__ float lustre_step(const Space& S, const EnvConst& E,
     const float row[kNumMetrics] = {cur_dirty, cur_grant, read_rpcs,
                                     write_rpcs, pend_r, pend_w, cache_hit,
                                     cpu_idle, iowait, ram, tput, iops_s};
+#pragma unroll
     for (int q = 0; q < kNumMetrics; ++q) samp[q * n + i] = row[q];
   }
   // windowed means: a serial left-to-right fold, as the reference's smean
@@ -333,38 +340,70 @@ __device__ float lustre_step(const Space& S, const EnvConst& E,
   return changed_any ? fadd(u_rst, dfs_changed ? 30.f : 0.f) : 0.f;
 }
 
+// The replay window of one session, the source of its updates: fetch
+// copies update u's B row indices into the stage, from the last thread
+// down; load gathers those rows of the window into xc, xt's first k
+// columns and y.
+struct Window {
+  const float *ws, *wa, *wr, *ws2;  // the window in shared memory
+  const int* idx;                   // this step's minibatch rows [U, B]
+  int b, k, m;
+
+  __device__ void fetch(const Scratch& S, int u) const {
+    for (int e = rev_thread(); e < b; e += blockDim.x)
+      copy_async4(S.stage + e, idx + (size_t)u * b + e);
+  }
+
+  __device__ void load(const Scratch& S, int) const {
+    const int* rows = reinterpret_cast<const int*>(S.stage);
+    const int kc = k + m;
+    for (int e = threadIdx.x; e < b * kc; e += blockDim.x) {
+      const int r = e / kc, c = e - r * kc, w = rows[r];
+      if (c < k) {
+        S.xc[e] = ws[w * k + c];
+        S.xt[e] = ws2[w * k + c];
+      } else {
+        S.xc[e] = wa[w * m + c - k];
+      }
+    }
+    for (int e = threadIdx.x; e < b; e += blockDim.x) S.y[e] = wr[rows[e]];
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
-episode_learn_kernel(Ptrs P, Dims D, Episode EP, Layout L, Hyper H, Space S,
-                     EnvConst E) {
+episode_learn_kernel(Ptrs P, Dims D, Episode EP,
+                     const __grid_constant__ Layout L, Hyper H,
+                     const __grid_constant__ Space S, EnvConst E) {
   extern __shared__ float smem[];
   const int n = blockIdx.x;
-  const int T = EP.t_steps, U = D.u, B = D.b, k = D.k, m = D.m, h1 = D.h1,
-            h2 = D.h2, cap = EP.cap, ns = EP.n_samples;
+  const int T = EP.t_steps, U = D.u, B = D.b, k = D.k, m = D.m,
+            cap = EP.cap, ns = EP.n_samples;
 
   // shared memory, part by part at the offsets of
   // kernels/episode_learn.py::smem_plan
-  float* learn_smem = smem;                 // the learner's scratch
-  float* ws = smem + EP.off_window;         // window [cap, k]
-  float* wa = ws + cap * k;                 //        [cap, m]
-  float* wr = wa + cap * m;                 //        [cap]
-  float* ws2 = wr + cap;                    //        [cap, k]
-  float* ms = smem + EP.off_minibatch;      // minibatch [B, k]
-  float* ma = ms + B * k;                   //           [B, m]
-  float* mr = ma + B * m;                   //           [B]
-  float* ms2 = mr + B;                      //           [B, k]
-  float* ha = smem + EP.off_actor;          // actor hidden [h1]
-  float* hb = ha + h1;                      //              [h2]
-  float* pol = hb + h2;                     // policy [m]
-  float* sv = smem + EP.off_state;          // state row [k]
-  float* met = sv + k;                      // metrics [k]
-  float* samp = smem + EP.off_samples;      // env samples [12 n]
+  const Nets nets = nets_at(smem, L);           // the learner state
+  const Scratch sc = scratch_at(smem + EP.off_learner, D);
+  float* ws = smem + EP.off_window;             // window [cap, k]
+  float* wa = ws + cap * k;                     //        [cap, m]
+  float* wr = wa + cap * m;                     //        [cap]
+  float* ws2 = wr + cap;                        //        [cap, k]
+  float* sv = smem + EP.off_state;              // state row [k]
+  float* met = sv + k;                          // metrics [k]
+  float* samp = smem + EP.off_samples;          // env samples [12 n]
+  // the act forward and the env step's rows, in the learner's scratch
+  float* pol = sc.mu;                           // policy [m]
+  float* act = sc.t1;                           // action [m]
+  float* val = act + kMaxKnobs;                 // knob values [m]
+  float* lgv = val + kMaxKnobs;                 // their log2 [m]
+  float* norm = sc.t2;                          // normalized metrics [k]
 
-  const Nets nets = nets_at(P.state + (size_t)n * D.floats, L);
+  float* row = P.state + (size_t)n * D.floats;
   const float* params = P.params + (size_t)n * kNumParams;
   const int actor_count0 = P.counts[2 * n];
   const int critic_count0 = P.counts[2 * n + 1];
 
-  // load the session's window and state row
+  // load the session's learner state, window and state row
+  move_state<true>(D, L, row, smem);
   for (int e = threadIdx.x; e < cap * k; e += blockDim.x) {
     ws[e] = P.bs[(size_t)n * cap * k + e];
     ws2[e] = P.bs2[(size_t)n * cap * k + e];
@@ -383,17 +422,22 @@ episode_learn_kernel(Ptrs P, Dims D, Episode EP, Layout L, Hyper H, Space S,
 
   for (int t = 0; t < T; ++t) {
     const size_t nt = (size_t)n * T + t;
+    const Window src{ws, wa, wr, ws2, P.mb_idx + nt * U * B, B, k, m};
+    if (EP.updates) src.fetch(sc, 0);
     // --- 1. act: the actor forward on the state row -------------------
-    dense(sv, k, k, nets.actor.w[0], nets.actor.b[0], h1, ha, h1, 1, 1);
+    for (int e = threadIdx.x; e < kQuarter; e += blockDim.x)
+      fwd_in(sv, k, k, nets.actor.w[0], nets.actor.b[0], sc.t1, 1, e);
     __syncthreads();
-    dense(ha, h1, h1, nets.actor.w[1], nets.actor.b[1], h2, hb, h2, 1, 1);
+    for (int e = threadIdx.x; e < kQuarter; e += blockDim.x)
+      fwd_hid(sc.t1, nets.actor.w[1], nets.actor.b[1], sc.t2, 1, e);
     __syncthreads();
-    dense(hb, h2, h2, nets.actor.w[2], nets.actor.b[2], m, pol, m, 1, 2);
+    for (int c = threadIdx.x; c < m; c += blockDim.x)
+      pol[c] = sigmoid(fwd_out(sc.t2, nets.actor.w[2], nets.actor.b[2], m,
+                               0, c));
     __syncthreads();
 
     if (threadIdx.x == 0) {
       // --- 2-3. explore or warm up, then quantize -----------------------
-      float act[kMaxKnobs], val[kMaxKnobs], lgv[kMaxKnobs];
       const bool warm = P.use_warmup[nt] != 0;
       for (int j = 0; j < m; ++j) {
         const float a = warm ? clampf(P.warmup[nt * m + j], 0.f, 1.f)
@@ -413,7 +457,6 @@ episode_learn_kernel(Ptrs P, Dims D, Episode EP, Layout L, Hyper H, Space S,
       const float* span = P.span + (size_t)n * k;
       const float* wv = P.w_vec + (size_t)n * k;
       float obj = 0.f;
-      float norm[32];
       for (int j = 0; j < k; ++j) {
         norm[j] = span[j] > 0.f
                       ? clampf(fdiv(fsub(met[j], lo[j]), span[j]), 0.f, 1.f)
@@ -444,31 +487,32 @@ episode_learn_kernel(Ptrs P, Dims D, Episode EP, Layout L, Hyper H, Space S,
           fmul(clampf(cost, 0.f, 1023.f), 2097152.f));
       objective = obj;
     }
-    __syncthreads();
-
-    // --- 7. U updates on minibatches gathered from the window ------------
-    if (EP.updates) {
-      for (int u = 0; u < U; ++u) {
-        const int* rows = P.mb_idx + ((size_t)nt * U + u) * B;
-        for (int e = threadIdx.x; e < B * k; e += blockDim.x) {
-          const int b = e / k, c = e - b * k;
-          ms[e] = ws[rows[b] * k + c];
-          ms2[e] = ws2[rows[b] * k + c];
-        }
-        for (int e = threadIdx.x; e < B * m; e += blockDim.x) {
-          const int b = e / m, c = e - b * m;
-          ma[e] = wa[rows[b] * m + c];
-        }
-        for (int b = threadIdx.x; b < B; b += blockDim.x) mr[b] = wr[rows[b]];
-        __syncthreads();
-        const int done = t * U + u + 1;
-        ddpg_update(D, H, nets, learn_smem, ms, ma, mr, ms2,
-                    actor_count0 + done, critic_count0 + done, nullptr);
+    // --- 7. U updates on minibatches gathered from the window; the Adam
+    // constants of the first blockDim.x, meanwhile on the other threads --
+    AdamConsts own{};
+    for (int u = 0; u < U; ++u) {
+      if (!EP.updates) break;
+      if (u % blockDim.x == 0) {
+        const int uo = owned_update(u);
+        if (uo < U)
+          own = adam_consts(H, critic_count0 + t * U + uo + 1,
+                            actor_count0 + t * U + uo + 1);
       }
+      if (u == 0) {
+        copy_wait();
+        __syncthreads();
+      }
+      ddpg_update(D, H, nets, sc, src, u, u + 1 < U, own, nullptr);
+    }
+    if (!EP.updates) {
+      copy_wait();
+      __syncthreads();
     }
   }
 
-  // write back the window, cursors, env state and carried state
+  // write back the learner state, window, cursors, env state and carried
+  // state
+  move_state<false>(D, L, row, smem);
   for (int e = threadIdx.x; e < cap * k; e += blockDim.x) {
     P.bs[(size_t)n * cap * k + e] = ws[e];
     P.bs2[(size_t)n * cap * k + e] = ws2[e];
@@ -496,15 +540,16 @@ episode_learn_kernel(Ptrs P, Dims D, Episode EP, Layout L, Hyper H, Space S,
 extern "C" {
 
 // Launches the episode on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted), or -1 when the caller's shared-memory plan
-// leaves the learner less scratch than ddpg_update needs, -2 when the space
-// does not fit the Space struct. Arrays (host memory, copied into the
-// launch):
+// the launch was accepted), or -1 when the caller's shared-memory plan does
+// not hold the learner state and scratch before its window, -2 when the
+// space does not fit the Space struct, -3 when the widths are not the ones
+// the learner is built for (hidden kHidden-kHidden, k + m + 1 <= kHidden).
+// Arrays (host memory, copied into the launch):
 //   ptrs[26]        device pointers, in the order of struct Ptrs;
-//   ints[19]        n, T, U, B, k, m, h1, h2, floats, cap, n_samples,
+//   ints[18]        n, T, U, B, k, m, h1, h2, floats, cap, n_samples,
 //                   learn, updates, then smem_plan's total bytes and the
-//                   float offsets of its window, minibatch, actor, state
-//                   and env-sample parts;
+//                   float offsets of its learner, window, state and
+//                   env-sample parts (the learner state is at 0);
 //   floats[15]      Hyper (10), then EnvConst (5);
 //   offsets[48]     the learner's layout;
 //   space_ints[58]  m, boolean[16], card[16], table[16], pos[8], dfs_mask;
@@ -526,11 +571,10 @@ int episode_learn_launch(void* const* ptrs, const int* ints,
   EP.draws = 3 + 11 * ints[10];
   EP.learn = ints[11];
   EP.updates = ints[12];
-  EP.off_window = ints[14];
-  EP.off_minibatch = ints[15];
-  EP.off_actor = ints[16];
-  EP.off_state = ints[17];
-  EP.off_samples = ints[18];
+  EP.off_learner = ints[14];
+  EP.off_window = ints[15];
+  EP.off_state = ints[16];
+  EP.off_samples = ints[17];
   Layout L;
   for (int i = 0; i < kSets * kLayers * 2; ++i) L.off[i] = offsets[i];
   Hyper H;
@@ -569,7 +613,11 @@ int episode_learn_launch(void* const* ptrs, const int* ints,
     S.log2v[i] = space_floats[3 * kMaxKnobs + kMaxTable + i];
   }
   const size_t smem = (size_t)ints[13];
-  if ((size_t)EP.off_window < learner_smem_floats(D)) return -1;
+  if (D.h1 != kHidden || D.h2 != kHidden || D.k + D.m + 1 > kHidden)
+    return -3;
+  if (EP.off_learner < D.floats ||
+      (size_t)EP.off_window < EP.off_learner + learner_smem_floats(D))
+    return -1;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         episode_learn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -579,6 +627,20 @@ int episode_learn_launch(void* const* ptrs, const int* ints,
   episode_learn_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
       P, D, EP, L, H, S, E);
   return (int)cudaGetLastError();
+}
+
+// Opts the kernel into `smem_bytes` of dynamic shared memory, as every
+// launch does, and returns the shared memory one block then holds, static
+// and dynamic, as the runtime reports it (cudaFuncGetAttributes), or -1.
+int episode_learn_shared_bytes(int smem_bytes) {
+  if (cudaFuncSetAttribute(episode_learn_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes) != cudaSuccess)
+    return -1;
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, episode_learn_kernel) != cudaSuccess)
+    return -1;
+  return (int)attr.sharedSizeBytes + attr.maxDynamicSharedSizeBytes;
 }
 
 }  // extern "C"

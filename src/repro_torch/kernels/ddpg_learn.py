@@ -2,8 +2,10 @@
 version, and the work it does.
 
 ``ddpg_learn`` launches ``csrc/ddpg_learn.cu`` (one thread block per tuning
-session, all U updates inside the block; it replaces the Pallas TPU kernel
-``kernels/ddpg_fused.py::ddpg_fused_learn`` of the JAX package).
+session, all U updates inside the block, the session's whole learner state
+resident in shared memory for the launch at the offsets of ``smem_plan``;
+it replaces the Pallas TPU kernel ``kernels/ddpg_fused.py::ddpg_fused_learn``
+of the JAX package).
 ``ddpg_learn_plain`` computes the same function as a Python loop of
 ``core.ddpg._ddpg_step`` with autograd, batched over sessions; it is what a
 CPU tensor runs (``kernels.ops.ddpg_inner_loop``) and what the kernel is
@@ -77,13 +79,84 @@ def _hyper(cfg: DDPGConfig) -> list:
         -cfg.actor_lr, -cfg.critic_lr)]
 
 
+#: dynamic shared memory one block may opt into on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: the hidden widths the kernels are built for (``csrc/ddpg_update.cuh``)
+HIDDEN = (64, 64)
+
+
+def smem_plan(cfg: DDPGConfig) -> dict:
+    """Bytes of dynamic shared memory one block of the learner kernel uses,
+    by part, in the order the parts lie in shared memory: the session's
+    whole learner state (parameters, targets and both Adam moments, resident
+    for the launch) and one update's activations and deltas. The kernel
+    takes the scratch's offset from this plan (``launch_args``)."""
+    k, m, (h1, h2), b = cfg.state_dim, cfg.action_dim, cfg.hidden, \
+        cfg.batch_size
+    kc = k + m
+    parts = {"learner_state": state_layout(cfg).floats,
+             "learner": 2 * b * kc + 4 * b * (h1 + h2) + 2 * b * m + 3 * b
+             + 3}
+    parts = {name: 4 * floats for name, floats in parts.items()}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def check_plan(plan: dict, cfg: DDPGConfig, kernel: str,
+               also: str = "") -> None:
+    """Raise ``ValueError`` when ``plan`` (a kernel's shared-memory plan for
+    ``cfg``) exceeds the per-block opt-in limit, naming the knobs to lower,
+    or when ``cfg``'s widths are not the ones the kernels are built for."""
+    if plan["total"] > SMEM_LIMIT:
+        top = sorted(((v, k) for k, v in plan.items() if k != "total"),
+                     reverse=True)[:3]
+        raise ValueError(
+            f"the {kernel} kernel needs {plan['total']:,} B of shared "
+            f"memory per block, over the {SMEM_LIMIT:,} B a block may use "
+            f"(largest parts: " + ", ".join(f"{k} {v:,} B" for v, k in top)
+            + f"); lower {also}the hidden widths or the batch size")
+    if tuple(cfg.hidden) != HIDDEN:
+        raise ValueError(f"the {kernel} kernel is built for hidden "
+                         f"{HIDDEN}, got hidden={tuple(cfg.hidden)!r}")
+
+
+def check_smem_fit(cfg: DDPGConfig) -> dict:
+    """``smem_plan`` of this configuration, checked by ``check_plan``."""
+    plan = smem_plan(cfg)
+    check_plan(plan, cfg, "ddpg_learn")
+    return plan
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The library's two functions: the launcher, and
+    ``ddpg_learn_shared_bytes(smem_bytes)``, the shared memory a block of
+    the kernel holds once opted into ``smem_bytes``."""
     fn = lib.ddpg_learn_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.ddpg_learn_shared_bytes.argtypes = [ctypes.c_int]
+        lib.ddpg_learn_shared_bytes.restype = ctypes.c_int
     return lib
+
+
+def launch_args(state: DDPGState, batches: tuple, metrics: torch.Tensor,
+                cfg: DDPGConfig, plan: dict) -> tuple:
+    """The arguments of ``ddpg_learn_launch`` but the stream: device
+    pointers, the layout and constants as ctypes arrays (pass their
+    addresses), the sizes and ``plan``'s total bytes and scratch offset."""
+    flat, counts, _ = state
+    s, a, r, s2 = batches
+    n, u = s.shape[:2]
+    layout = state_layout(cfg)
+    offsets = (ctypes.c_int * 48)(*layout.flat_offsets())
+    hyper = (ctypes.c_float * 10)(*_hyper(cfg))
+    return (flat.data_ptr(), counts.data_ptr(), s.data_ptr(), a.data_ptr(),
+            r.data_ptr(), s2.data_ptr(), metrics.data_ptr(), offsets, hyper,
+            n, u, cfg.batch_size, cfg.state_dim, cfg.action_dim,
+            cfg.hidden[0], cfg.hidden[1], layout.floats, plan["total"],
+            plan["learner_state"] // 4)
 
 
 def ddpg_learn(state: DDPGState, batches: tuple, *,
@@ -94,9 +167,11 @@ def ddpg_learn(state: DDPGState, batches: tuple, *,
     Updates ``state`` IN PLACE (``flat``, ``counts``, ``step``), like the
     TPU kernel, which aliases its parameter inputs to its outputs. Returns
     the metrics ``[N, U, 3]``. Raises on a tensor the kernel does not take
-    (wrong device, dtype, shape or layout) and on a refused launch.
-    ``ddpg_learn.launches`` counts launches."""
+    (wrong device, dtype, shape or layout), on a configuration whose
+    resident state does not fit a block's shared memory (``smem_plan``) and
+    on a refused launch. ``ddpg_learn.launches`` counts launches."""
     n, u = _check(state, batches, cfg)
+    plan = check_smem_fit(cfg)
     flat, counts, step = state
     if not flat.is_cuda:
         raise ValueError("ddpg_learn launches the CUDA kernel and takes CUDA "
@@ -105,18 +180,12 @@ def ddpg_learn(state: DDPGState, batches: tuple, *,
     if n == 0 or u == 0:
         return metrics
     lib = _bind(build.load("ddpg_learn"))
-    layout = state_layout(cfg)
-    offsets = (ctypes.c_int * 48)(*layout.flat_offsets())
-    hyper = (ctypes.c_float * 10)(*_hyper(cfg))
-    s, a, r, s2 = batches
+    args = launch_args(state, batches, metrics, cfg, plan)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         err = lib.ddpg_learn_launch(
-            flat.data_ptr(), counts.data_ptr(), s.data_ptr(), a.data_ptr(),
-            r.data_ptr(), s2.data_ptr(), metrics.data_ptr(),
-            ctypes.addressof(offsets), ctypes.addressof(hyper),
-            n, u, cfg.batch_size, cfg.state_dim, cfg.action_dim,
-            cfg.hidden[0], cfg.hidden[1], layout.floats, stream)
+            *args[:7], *(ctypes.addressof(x) for x in args[7:9]), *args[9:],
+            stream)
     if err != 0:
         raise RuntimeError(f"ddpg_learn: kernel launch failed with CUDA "
                            f"error {err}")

@@ -44,11 +44,11 @@ from repro_torch.envs.lustre_model import LustreParams, LustreSimModel, \
     draws_per_step, episode_draws
 from repro_torch.envs.lustre_sim import NET_CAP
 from repro_torch.kernels import build
-from repro_torch.kernels.ddpg_learn import _hyper, ddpg_learn_plain
+from repro_torch.kernels.ddpg_learn import SMEM_LIMIT, _hyper, check_plan, \
+    ddpg_learn_plain
+from repro_torch.kernels.ddpg_learn import smem_plan as smem_plan_learner
 from repro_torch.kernels.ddpg_learn import work as learner_work
 
-#: dynamic shared memory one block may opt into on an H100 (227 KB)
-SMEM_LIMIT = 232_448
 MAX_KNOBS = 16
 MAX_TABLE = 128
 MAX_STATE = 32
@@ -169,23 +169,24 @@ def _check(op: EpisodeOperands, spec: EpisodeKernelSpec) -> tuple:
 def smem_plan(state_dim: int, action_dim: int, hidden: tuple,
               batch_size: int, capacity: int, n_samples: int) -> dict:
     """Bytes of dynamic shared memory one block of the episode kernel uses,
-    by part, in the order the parts lie in shared memory: the learner's
-    activations and deltas, the replay window, the gathered minibatch, the
-    actor's hidden rows and policy, the state and metric rows, and the env
-    step's per-sample scratch. The kernel takes each part's offset from
-    this plan (``launch_args``) and computes none itself."""
-    k, m, (h1, h2), b = state_dim, action_dim, hidden, batch_size
-    kc = k + m
+    by part, in the order the parts lie in shared memory: the session's
+    whole learner state (resident for the launch), the learner's
+    activations and deltas (which also hold the act forward's rows and the
+    env step's action, knob values and normalized metrics between steps),
+    the replay window, the state and metric rows, and the env step's
+    per-sample scratch. The kernel takes each part's offset from this plan
+    (``launch_args``) and computes none itself."""
+    k, m, b = state_dim, action_dim, batch_size
+    cfg = DDPGConfig(k, m, hidden=tuple(hidden), batch_size=b)
+    learner = smem_plan_learner(cfg)
     row = 2 * k + m + 1  # one transition's floats
     parts = {
-        "learner": 2 * b * kc + 4 * b * (h1 + h2) + 2 * b * m + 3 * b + 3,
-        "replay_window": capacity * row,
-        "minibatch": b * row,
-        "actor_rows": h1 + h2 + m,
-        "state_rows": 2 * k,
-        "env_samples": 12 * n_samples,
+        "learner_state": learner["learner_state"],
+        "learner": learner["learner"],
+        "replay_window": 4 * capacity * row,
+        "state_rows": 4 * 2 * k,
+        "env_samples": 4 * 12 * n_samples,
     }
-    parts = {name: 4 * floats for name, floats in parts.items()}
     parts["total"] = sum(parts.values())
     return parts
 
@@ -193,22 +194,15 @@ def smem_plan(state_dim: int, action_dim: int, hidden: tuple,
 def check_smem_fit(cfg: DDPGConfig, capacity: int, n_samples: int) -> dict:
     """``smem_plan`` of this configuration; raises ``ValueError`` when it
     exceeds the per-block opt-in limit (227 KB on the H100), naming the
-    knob to lower."""
+    knob to lower, or when the widths are not the learner's
+    (``ddpg_learn.check_plan``)."""
     plan = smem_plan(cfg.state_dim, cfg.action_dim, cfg.hidden,
                      cfg.batch_size, capacity, n_samples)
-    if plan["total"] > SMEM_LIMIT:
-        row = 4 * (2 * cfg.state_dim + cfg.action_dim + 1)
-        fixed = plan["total"] - plan["replay_window"]
-        most = max(0, (SMEM_LIMIT - fixed) // row)
-        top = sorted(((v, k) for k, v in plan.items() if k != "total"),
-                     reverse=True)[:3]
-        raise ValueError(
-            f"the episode kernel needs {plan['total']:,} B of shared memory "
-            f"per block, over the {SMEM_LIMIT:,} B a block may use "
-            f"(largest parts: "
-            + ", ".join(f"{k} {v:,} B" for v, k in top)
-            + f"); lower buffer_capacity (replay capacity, at most {most} "
-            f"rows here), or the batch size or hidden widths")
+    row = 4 * (2 * cfg.state_dim + cfg.action_dim + 1)
+    most = max(0, (SMEM_LIMIT - plan["total"] + plan["replay_window"]) // row)
+    check_plan(plan, cfg, "episode",
+               also=f"buffer_capacity (replay capacity, at most {most} rows "
+                    f"here), or ")
     return plan
 
 
@@ -309,10 +303,15 @@ def env_consts(model: LustreSimModel) -> list:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The library's two functions: the launcher, and
+    ``episode_learn_shared_bytes(smem_bytes)``, the shared memory a block of
+    the kernel holds once opted into ``smem_bytes``."""
     fn = lib.episode_learn_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int
+        lib.episode_learn_shared_bytes.argtypes = [ctypes.c_int]
+        lib.episode_learn_shared_bytes.restype = ctypes.c_int
     return lib
 
 

@@ -1,20 +1,10 @@
 """The episode kernel module (``repro_torch.kernels.episode_learn``) and the
-single-session episode engine (``repro_torch.core.episode``): the plain
-version against the JAX package's megakernel formulation on the
-reference's own small operands, the pre-draw, the shared-memory plan and
-its refusal, the CPU dispatch, the wrapper's refusals, and (on a CUDA card
-only) the kernel against its plain version.
-
-Tolerances of the plain version vs ``episode_fused_xla`` and
-``episode_fused_ref`` (``tests/test_megakernel.py::_build`` operands: T = 5
-steps, U = 4 updates, capacity 8), measured before pinning:
-
-* knob indices, restart fixed points, both key chains, replay cursors and
-  Adam counts EXACT;
-* trace and replay floats within 64 float32 ulps (measured 3 on 2-D, 20 on
-  8-D: the env step's few ulps, tests/test_torch_env_model.py, carried
-  through the normalization and the reward);
-* learner tensors within 1e-5 x max|ref| (measured 8.9e-7 / 1.1e-6).
+single-session episode engine (``repro_torch.core.episode``): the pre-draw,
+the shared-memory plan and its refusal, the CPU dispatch, the wrapper's
+refusals, and (on a CUDA card only) the kernel against its plain version.
+The plain version against the JAX package's megakernel formulation is held
+in ``tests/test_torch_episode_reference.py``, on the operands
+``port_operands`` below converts.
 """
 
 import ctypes
@@ -25,12 +15,10 @@ import pytest
 import torch
 
 from repro.kernels.ddpg_fused import unpack_params
-from repro.kernels.episode_fused import episode_fused_xla
-from repro.kernels.ref import episode_fused_ref
 from repro_torch import convert
 from repro_torch.convert import AdamStateNumpy, DDPGStateNumpy
 from repro_torch.core.action_mapping import ParamSpace, ParamSpec
-from repro_torch.core.ddpg import DDPGConfig, unflatten
+from repro_torch.core.ddpg import DDPGConfig
 from repro_torch.core.episode import EpisodeCarry, _encode_restart, \
     decode_restarts, run_episode_scan
 from repro_torch.envs import LustreSimEnv, LustreSimV2
@@ -40,15 +28,7 @@ from repro_torch.kernels.ddpg_learn import work as learner_work
 
 from tests.test_megakernel import _build
 
-TRACE_ULPS = 64
-LEARNER_RTOL = 1e-5
 PAIRS = [("LustreSimEnv", LustreSimEnv), ("LustreSimV2", LustreSimV2)]
-
-
-def _ulps(a, b) -> int:
-    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
-    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
-    return int(np.abs(a - b).max()) if a.size else 0
 
 
 def _lead(x: torch.Tensor) -> torch.Tensor:
@@ -97,56 +77,6 @@ def _clone(x):
     return type(x)(*(_clone(y) for y in x))
 
 
-@pytest.mark.parametrize("name,t_cls", PAIRS)
-def test_plain_matches_the_reference_formulations(name, t_cls):
-    from repro.envs import LustreSimEnv as JE, LustreSimV2 as JV
-
-    op, spec = _build(JE if name == "LustreSimEnv" else JV)
-    opf = jax.tree_util.tree_map(lambda x: x[None], op)
-    twin = jax.tree_util.tree_map(lambda x: np.asarray(x)[0],
-                                  episode_fused_xla(opf, spec=spec))
-    oracle = jax.tree_util.tree_map(
-        np.asarray, jax.jit(lambda o: episode_fused_ref(o, spec=spec))(op))
-    pop, pspec = port_operands(op, spec, t_cls)
-    trace = el.episode_learn_plain(pop, spec=pspec)
-    c = pop.carry
-    for ref in (twin, oracle):
-        np.testing.assert_array_equal(trace.action_idx[0].numpy(),
-                                      ref.action_idx)
-        np.testing.assert_array_equal(trace.restarts[0].numpy(),
-                                      ref.restarts)
-        np.testing.assert_array_equal(c.env_state.key[0].numpy(),
-                                      np.asarray(ref.env[0]).astype(np.int64))
-        np.testing.assert_array_equal(c.learn_key[0].numpy(),
-                                      np.asarray(ref.learn_key)
-                                      .astype(np.int64))
-        assert int(c.buffer.next_slot[0]) == int(ref.buffer[4])
-        assert int(c.buffer.size[0]) == int(ref.buffer[5])
-        for got, want in ((trace.metrics[0], ref.metrics),
-                          (trace.rewards[0], ref.rewards),
-                          (trace.objectives[0], ref.objectives),
-                          (c.state_vec[0], ref.state_vec),
-                          (c.objective[0], ref.objective),
-                          (c.env_state.warmth[0], ref.env[1]),
-                          *zip([b[0] for b in c.buffer[:4]],
-                               ref.buffer[:4])):
-            assert _ulps(got.numpy(), want) <= TRACE_ULPS
-    want = unpack_params(*twin.packed, spec.dims)
-    got = unflatten(c.ddpg.flat[0], pspec.cfg)
-    for net in ("actor", "critic", "actor_targ", "critic_targ", "actor_mu",
-                "actor_nu", "critic_mu", "critic_nu"):
-        for g, w in zip(got[net], want[net]):
-            for key in ("w", "b"):
-                w_ = np.asarray(w[key])
-                err = np.abs(g[key].numpy() - w_).max()
-                assert err <= LEARNER_RTOL * max(np.abs(w_).max(), 1e-30)
-    t_steps, u = op.use_warmup.shape[0], spec.num_updates
-    assert c.ddpg.counts[0].tolist() == [int(want["actor_count"]),
-                                         int(want["critic_count"])]
-    assert c.ddpg.counts[0].tolist() == [t_steps * u] * 2
-    assert int(c.ddpg.step[0]) == t_steps * u
-
-
 def test_predraw_is_the_two_key_chains():
     """The env draws are ``episode_draws`` of the env key; step t's
     minibatch indices are ``randint(kk_t, (U, B), 0, min(size0 + t + 1,
@@ -176,17 +106,22 @@ def test_predraw_is_the_two_key_chains():
 
 
 def test_smem_plan_and_its_refusal():
-    """The plan counts floats part by part (48,332 B on 8-D at capacity 64,
-    one block may opt into 232,448 B), and a replay window that does not fit
-    is refused before any launch, naming the knob to lower."""
+    """The plan counts floats part by part, the session's whole learner
+    state first (222,972 B on 8-D and 207,516 B on 2-D at capacity 64, one
+    block may opt into 232,448 B), and a replay window that does not fit is
+    refused before any launch, naming the knob to lower."""
     plan = el.smem_plan(12, 8, (64, 64), 16, 64, 12)
+    assert list(plan) == ["learner_state", "learner", "replay_window",
+                          "state_rows", "env_samples", "total"]
+    assert plan["learner_state"] == 177_296
+    assert plan["learner"] == 36_556
     assert plan["replay_window"] == 4 * 64 * (2 * 12 + 8 + 1)
-    assert plan["minibatch"] == 4 * 16 * 33
+    assert plan["state_rows"] == 4 * 2 * 12
     assert plan["env_samples"] == 4 * 12 * 12
-    assert plan["total"] == 48_332
+    assert plan["total"] == 222_972
     assert plan["total"] == sum(v for k, v in plan.items() if k != "total")
-    assert el.smem_plan(12, 2, (64, 64), 16, 64, 12)["total"] < \
-        el.SMEM_LIMIT
+    assert el.smem_plan(12, 2, (64, 64), 16, 64, 12)["total"] == 207_516
+    assert plan["total"] < el.SMEM_LIMIT
     cfg = DDPGConfig(12, 8)
     assert el.check_smem_fit(cfg, 64, 12) == plan
     with pytest.raises(ValueError, match="buffer_capacity"):

@@ -3,14 +3,17 @@
 CUDA headers, with one thread per block, and held against the kernel's plain
 PyTorch version on the same inputs.
 
-One thread stands in for a block of 256: every phase of the kernels is a
-loop ``for (e = threadIdx.x; e < n; e += blockDim.x)`` whose iterations
-write disjoint elements, and the phases are separated by
-``__syncthreads()``, so running each phase's loop whole on one thread, in
-order, computes what the block computes. What this checks on a machine
-without a card: the kernels' indexing, shared-memory carve-up, argument
-unpacking and op order. What it cannot check: races, launch limits and the
-card's own ``expf``/``powf`` (the chip check does, ``chip_smoke.py``).
+One thread stands in for a block: every phase of the kernels is a loop
+``for (e = threadIdx.x; e < n; e += blockDim.x)`` whose iterations write
+disjoint elements, and the phases are separated by ``__syncthreads()``, so
+running each phase's loop whole on one thread, in order, computes what the
+block computes; the learners' ``cp.async`` copies of the next update's
+minibatch complete at once, and their side tasks (a row mean, the Adam
+constants) fall on the one thread. What this checks on a machine without a
+card: the kernels' indexing, shared-memory carve-up (the learners' resident
+state, its permuted rows and the scratch), argument unpacking and op order.
+What it cannot check: races, launch limits and the card's own
+``expf``/``powf`` (the chip check does, ``chip_smoke.py``).
 
 The bfloat16 ``gmm``, flash forward, flash backward, ``ssd_scan`` and
 ``wkv6_scan`` are the exceptions: their tensor-core kernels (TMA or the
@@ -82,14 +85,15 @@ import torch
 
 from repro_torch import random as jrandom
 from repro_torch.core import DDPGConfig, MagpieAgent
-from repro_torch.core.ddpg import DDPGState, ddpg_init, state_layout
+from repro_torch.core.ddpg import DDPGState, ddpg_init
 from repro_torch.core.episode import BufferState, EpisodeCarry
 from repro_torch.core.scalarization import metric_bounds
 from repro_torch.envs import LustreSimEnv, LustreSimV2
 from repro_torch.envs.lustre_model import LustreEnvState
 from repro_torch.kernels import build
 from repro_torch.kernels import episode_learn as el
-from repro_torch.kernels.ddpg_learn import _hyper, ddpg_learn_plain
+from repro_torch.kernels import ddpg_learn as dl
+from repro_torch.kernels.ddpg_learn import ddpg_learn_plain
 from repro_torch.kernels.flash_attention import BWD_TC_STAGES, \
     TC_STAGES, bind_bwd, bwd_smem_plan, bwd_tc_smem_plan, \
     flash_attention_bwd_plain, flash_attention_fwd_plain, scale_of, \
@@ -139,6 +143,14 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+struct cudaFuncAttributes {
+  std::size_t sharedSizeBytes;
+  int maxDynamicSharedSizeBytes;
+};
+template <class F> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  *a = {0, 0};
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
@@ -240,15 +252,10 @@ def test_ddpg_learn_source_matches_plain(emulated, m):
     plain, kern = _clone(state), _clone(state)
     want = ddpg_learn_plain(plain, batches, cfg=cfg)
     got = torch.empty((n, u, 3))
-    fn = emulated["ddpg_learn"].ddpg_learn_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p]
-    offsets = (ctypes.c_int * 48)(*state_layout(cfg).flat_offsets())
-    hyper = (ctypes.c_float * 10)(*_hyper(cfg))
-    err = fn(kern.flat.data_ptr(), kern.counts.data_ptr(),
-             *(b.data_ptr() for b in batches), got.data_ptr(),
-             ctypes.addressof(offsets), ctypes.addressof(hyper), n, u, 16,
-             12, m, 64, 64, state_layout(cfg).floats, None)
+    fn = dl._bind(emulated["ddpg_learn"]).ddpg_learn_launch
+    args = dl.launch_args(kern, batches, got, cfg, dl.check_smem_fit(cfg))
+    err = fn(*args[:7], *(ctypes.addressof(x) for x in args[7:9]),
+             *args[9:], None)
     assert err == 0
     assert torch.equal(kern.counts, plain.counts)
     assert _rel(kern.flat, plain.flat) <= 1e-6
@@ -832,6 +839,94 @@ def test_wkv6_tensor_core_contract_and_plan(emulated):
                                 64, 64, 1, None) == -2
     assert lib.wkv6_scan_tc_smem_bytes() == wkv_tc_smem_plan()["total"]
     assert 2 * (wkv_tc_smem_plan()["total"] + 1024) <= 233_472
+
+
+@pytest.fixture(scope="module")
+def learner_division(tmp_path_factory):
+    """``ddpg::div_exact`` of ``csrc/ddpg_update.cuh`` built for the CPU,
+    over arrays: (q, ok) of a / b (with ``root``, ``ddpg::sqrt_exact`` of
+    a)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    out = tmp_path_factory.mktemp("division")
+    (out / "cuda_runtime.h").write_text(STUB)
+    shutil.copy(build.CSRC / "ddpg_update.cuh", out / "ddpg_update.cuh")
+    (out / "div.cpp").write_text(
+        '#include "ddpg_update.cuh"\n'
+        'dim3_ threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};\n'
+        'extern "C" void div_batch(const float* a, const float* b,\n'
+        '                          float* q, int* ok, int n, int root) {\n'
+        '  for (int i = 0; i < n; ++i) {\n'
+        '    bool o = true;\n'
+        '    q[i] = root ? ddpg::sqrt_exact(a[i])\n'
+        '                : ddpg::div_exact(a[i], b[i], o);\n'
+        '    ok[i] = o;\n'
+        '  }\n'
+        '}\n')
+    lib = out / "libdiv.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-I", str(out), "-o", str(lib),
+                    str(out / "div.cpp")], check=True, capture_output=True,
+                   timeout=300)
+    fn = ctypes.CDLL(str(lib)).div_batch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+
+    def run(a, b, root=False):
+        a = np.ascontiguousarray(a, np.float32)
+        b = np.ascontiguousarray(b, np.float32)
+        q = np.empty_like(a)
+        ok = np.empty(a.shape, np.int32)
+        fn(a.ctypes.data, b.ctypes.data, q.ctypes.data, ok.ctypes.data,
+           a.size, int(root))
+        return q, ok
+
+    return run
+
+
+def test_learner_division_is_exact(learner_division):
+    """The learners' Adam divides by ``div_exact`` (``__fdiv_rn``'s fast
+    path with a 2^64 scaling for numerators below 2^-90 and a subnormal
+    tie broken by the residual) and takes roots by ``sqrt_exact``, which
+    must give the bits of IEEE division and square root over their
+    ranges: numerators of every exponent up to 2^90 (zeros and subnormals
+    included), subnormal quotients near the midpoint of two subnormals,
+    and divisors in [2^-30, 2^10); roots of zeros, subnormals and normal
+    numbers. Out of range the division says so. Bitwise: 0 mismatches of
+    2^20 pairs (or arguments) of each kind."""
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    bits = rng.integers(0, 1 << 23, n, dtype=np.uint32)
+    b = ((bits | ((127 - 30 + rng.integers(0, 40, n, dtype=np.uint32))
+                  << 23)).view(np.float32))
+    exps = rng.integers(0, 127 + 90, n, dtype=np.uint32)
+    sign = rng.integers(0, 2, n, dtype=np.uint32) << 31
+    a_any = (rng.integers(0, 1 << 23, n, dtype=np.uint32) | (exps << 23)
+             | sign).view(np.float32)
+    a_any[rng.integers(0, 1024, n) == 0] = 0.0
+    a_sub = (rng.integers(0, 1 << 23, n, dtype=np.uint32)
+             | (rng.integers(0, 37, n, dtype=np.uint32) << 23)
+             | sign).view(np.float32)
+    mid = ((rng.integers(0, 1 << 23, n) + 0.5) * 2.0 ** -149
+           * b.astype(np.float64)).astype(np.float32)
+    a_tie = np.maximum(mid.view(np.int32)
+                       + rng.integers(-1, 2, n).astype(np.int32), 0
+                       ).view(np.float32) * np.where(sign > 0, -1, 1
+                                                    ).astype(np.float32)
+    with np.errstate(all="ignore"):
+        for a in (a_any, a_sub, a_tie):
+            q, ok = learner_division(a, b)
+            assert ok.all()
+            np.testing.assert_array_equal(q.view(np.uint32),
+                                          (a / b).view(np.uint32))
+            x = np.abs(a)
+            root, _ = learner_division(x, b, root=True)
+            np.testing.assert_array_equal(root.view(np.uint32),
+                                          np.sqrt(x).view(np.uint32))
+        wide = np.array([2.0 ** 91, 1.0, 1.0], np.float32)
+        _, ok = learner_division(wide, np.array([1.0, 2.0 ** -31, 2.0 ** 11],
+                                                np.float32))
+        assert not ok.any()
 
 
 def test_the_emulation_covers_every_source():

@@ -29,6 +29,7 @@ are max|port - jax| / max|jax|):
 """
 
 import dataclasses
+import itertools
 import os
 
 import jax
@@ -300,7 +301,25 @@ def test_remat_full_equals_none():
 # (tests/test_infra.py's trainer tests, on the port)
 # ---------------------------------------------------------------------------
 
-def _make_trainer(tmp_dir: str, total: int, ckpt_every: int = 5):
+def _make_trainer(monkeypatch, tmp_dir: str, total: int,
+                  ckpt_every: int = 5, clock=None):
+    """A smoke-size trainer whose clock is injected: ``clock``, a one-item
+    list the caller advances, or by default a clock that each reading
+    advances by 1 s, so that every step takes 1 s and the straggler
+    watchdog never fires however loaded the machine is."""
+    from repro_torch.training import trainer as trainer_mod
+
+    if clock is None:
+        ticks = itertools.count()
+
+        def read():
+            return float(next(ticks))
+    else:
+        def read():
+            return clock[0]
+
+    monkeypatch.setattr(trainer_mod, "time", type(
+        "Clock", (), {"perf_counter": staticmethod(read)}))
     cfg = configs.get_smoke_config("phi4-mini-3.8b")
     params = init_params(model_defs(cfg), torch.Generator().manual_seed(0),
                          "cpu")
@@ -316,25 +335,25 @@ def _make_trainer(tmp_dir: str, total: int, ckpt_every: int = 5):
                                        for k, v in b.items()})
 
 
-def test_trainer_loss_decreases():
-    out = _make_trainer("", total=30).run()
+def test_trainer_loss_decreases(monkeypatch):
+    out = _make_trainer(monkeypatch, "", total=30).run()
     losses = [m["loss"] for m in out["metrics"]]
     assert np.mean(losses[-5:]) < np.mean(losses[:5])
 
 
-def test_resume_equals_uninterrupted(tmp_path):
-    full = _make_trainer("", total=10).run()
+def test_resume_equals_uninterrupted(tmp_path, monkeypatch):
+    full = _make_trainer(monkeypatch, "", total=10).run()
     d = str(tmp_path / "ck")
-    _make_trainer(d, total=5, ckpt_every=5).run()
-    t_b = _make_trainer(d, total=10, ckpt_every=5)
+    _make_trainer(monkeypatch, d, total=5, ckpt_every=5).run()
+    t_b = _make_trainer(monkeypatch, d, total=10, ckpt_every=5)
     assert t_b.try_resume() and t_b.step == 5
     resumed = t_b.run()
     assert resumed["metrics"][-1]["loss"] == full["metrics"][-1]["loss"]
 
 
-def test_preemption_checkpoints_and_stops(tmp_path):
+def test_preemption_checkpoints_and_stops(tmp_path, monkeypatch):
     d = str(tmp_path / "ck")
-    t = _make_trainer(d, total=100)
+    t = _make_trainer(monkeypatch, d, total=100)
     orig = t.train_step
 
     def step_and_preempt(*a):
@@ -352,12 +371,9 @@ def test_watchdog_raises_on_stragglers(tmp_path, monkeypatch):
     """The trainer's clock is replaced by one that each step advances by 1 s,
     and by 100 s from step 7 on (an injected straggler), so the test does
     not depend on how fast the machine runs the steps."""
-    from repro_torch.training import trainer as trainer_mod
-
     clock = [0.0]
-    monkeypatch.setattr(trainer_mod, "time", type(
-        "Clock", (), {"perf_counter": staticmethod(lambda: clock[0])}))
-    t = _make_trainer(str(tmp_path / "ck"), total=100)
+    t = _make_trainer(monkeypatch, str(tmp_path / "ck"), total=100,
+                      clock=clock)
     t.tcfg.watchdog_warmup = 2
     t.tcfg.watchdog_limit = 2
     t.tcfg.watchdog_factor = 5.0
