@@ -60,7 +60,31 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   the first step after it, and the replay windows' rows of
                   the warmup steps must agree within ``TUNE_WINDOW_RTOL``
                   (the rows of the later agreeing steps are reported);
-  7. check_flash  the ``flash_attention_fwd`` kernels against their plain
+  7. fleet        the fleet runtime, on the 2-D and the 8-D space:
+                  ``FleetTuner.from_grid`` over 4 workloads x 256 seeds
+                  (1,024 sessions), 30 steps, on the scan engine under four
+                  schedules: monolithic (``episode_learn`` launched
+                  exactly once), ``chunk=256`` with the copy streams (4
+                  launches), ``chunk=256`` serial, and ``chunk=300`` (300 +
+                  300 + 300 + 124, nothing padded): every trace leaf, the
+                  learner state, the replay window and cursors and the keys
+                  held bitwise equal across the four; 8 evenly spaced
+                  sessions each held bitwise equal to a fleet of one built
+                  from its workload and cell seed; a fleet of one held equal
+                  to the single ``Tuner`` on both engines (configs,
+                  objectives, restart seconds, all 30 steps); the host
+                  engine on the same 1,024 sessions (``ddpg_learn``
+                  launched exactly once per step, finite metrics, a positive
+                  median throughput gain), with the fleet act held
+                  independent of the fleet's width (and the rows a batched
+                  product would change reported); ``memory_plan``'s learner
+                  and replay bytes held equal to the live tensors and the
+                  monolithic run's peak device memory held within the plan's
+                  chunk and pre-draw bytes plus ``FLEET_PEAK_MARGIN``; the
+                  wall time per step, the launches' device time, the host's
+                  staging, drain, trace replay and evaluations, session-steps
+                  per second and ``FleetResult.summary()`` reported;
+  8. check_flash  the ``flash_attention_fwd`` kernels against their plain
                   version on the same numpy inputs: bfloat16 (the
                   tensor-core kernel) at the two serving shapes (B 4, S 512
                   and B 1, S 4096; 32 query over 4 key/value heads, D 128)
@@ -69,11 +93,11 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   2, S 256, 8 over 2 heads, D 64, causal and not. ``out``
                   and ``lse`` held within ``FLASH_*`` below, two launches
                   bitwise equal;
-  8. serve        the LM serving path, ``repro_torch.launch.serve.serve`` on
+  9. serve        the LM serving path, ``repro_torch.launch.serve.serve`` on
                   Yi-9B at its published depth and width in bfloat16, random
                   weights from a seeded ``torch.Generator`` on the card: 4
                   prompts x 512 tokens -> 32 greedy tokens, then 1 x 4096 ->
-                  8. Each prefill must launch the flash kernel exactly 48
+  9. Each prefill must launch the flash kernel exactly 48
                   times (once per layer) and each decode step never. Then
                   the same prefill once more with the kernel held against its
                   plain version on the q, k, v of each of the 48 layers (the
@@ -84,7 +108,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   reported, not held, since random weights at this depth
                   amplify any rounding difference until nothing agrees
                   (PERF.md);
-  9. check_flash_bwd the flash backward kernels (``flash_attention_dq``;
+ 10. check_flash_bwd the flash backward kernels (``flash_attention_dq``;
                   ``flash_attention_dkv``) against their plain version on
                   the same numpy inputs (out and lse from the forward's plain
                   version): bfloat16 (the tensor-core kernels
@@ -102,7 +126,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   kernels' shared memory equal to ``bwd_smem_plan`` (the
                   tensor-core kernels' with the stages ``BWD_TC_STAGES``
                   states);
- 10. train        the training path, ``Trainer`` over
+ 11. train        the training path, ``Trainer`` over
                   ``make_train_step`` on phi4-mini-3.8b at its published
                   size in bfloat16 (random weights from a seeded
                   ``torch.Generator`` on the card; AdamW from
@@ -123,7 +147,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   second step of a fresh run from the seed, held at one
                   bf16 step of the largest value (``FLASH_BWD_STEP2_RTOL``)
                   and the same share (``second_step_layers``);
- 11. check_gmm    the ``gmm`` kernel against its plain version on the same
+ 12. check_gmm    the ``gmm`` kernel against its plain version on the same
                   numpy inputs: bfloat16 (the tensor-core kernel) at
                   deepseek-moe-16b's two serving products (E 64, C 1920, D
                   2048 -> F 1408 and D 1408 -> F 2048), float32 (the
@@ -131,7 +155,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   bfloat16 at E 3, C 192, D 160, F 192 (its 128 x 128 x 64
                   tiles run past C, F and D); held within ``GMM_*`` below,
                   two launches bitwise equal;
- 12. serve_moe    the MoE serving path, ``repro_torch.launch.serve.serve`` on
+ 13. serve_moe    the MoE serving path, ``repro_torch.launch.serve.serve`` on
                   deepseek-moe-16b at its published size in bfloat16 (random
                   weights from a seeded ``torch.Generator`` on the card): 4
                   prompts x 4096 tokens -> 8 greedy tokens, whose prefill
@@ -145,7 +169,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   gate, up and down inputs (the ``GMM_*`` bf16 bounds), and
                   through the plain version: the last-token logits' gap is
                   reported, not held (random weights amplify rounding);
- 13. check_ssd    the ``ssd_scan`` kernel against its plain version on the
+ 14. check_ssd    the ``ssd_scan`` kernel against its plain version on the
                   same numpy inputs: float32 at B 2, H 3, S 400, P 32, N 16,
                   chunk 200 and at B 1, H 2, S 512, P = N = 64, chunk 256;
                   bfloat16 (the tensor-core kernel) at zamba2-7b's serving
@@ -156,7 +180,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   (x, B and C copied by cp.async, not TMA); y and the
                   float32 state held within ``SSD_*`` below, two launches
                   bitwise equal;
- 14. serve_hybrid the hybrid serving path, ``repro_torch.launch.serve.serve``
+ 15. serve_hybrid the hybrid serving path, ``repro_torch.launch.serve.serve``
                   on zamba2-7b at its published size in bfloat16 (random
                   weights from a seeded ``torch.Generator`` on the card): 4
                   prompts x 4096 tokens -> 8 greedy tokens, whose prefill
@@ -172,7 +196,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   ``FLASH_*`` bf16 bounds), and through the scan's plain
                   version: the last-token logits' gap is reported, not held
                   (random weights amplify rounding);
- 15. check_wkv    the ``wkv6_scan`` kernel against its plain version on the
+ 16. check_wkv    the ``wkv6_scan`` kernel against its plain version on the
                   same numpy inputs: float32 (the CUDA-core kernel) at BH
                   6, S 384, c 64, chunk 64; at BH 6, S 120, c 16, chunk 24
                   (the smoke head size, a chunk below 64); under strong
@@ -181,7 +205,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   64, chunk 64), at c 16, chunk 24 and under strong decay;
                   y and the float32 state held within ``WKV_*`` below, two
                   launches bitwise equal;
- 16. forward_rwkv the scoring and loss path, ``repro_torch.models.forward``
+ 17. forward_rwkv the scoring and loss path, ``repro_torch.models.forward``
                   on rwkv6-3b at its published size in bfloat16 (random
                   weights from a seeded ``torch.Generator`` on the card),
                   under ``torch.no_grad()``: 4 x 4096 tokens and 4 x 200
@@ -193,13 +217,13 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   inputs (the ``WKV_*`` bf16 bounds), and through the plain
                   version: the logits' gap is reported, not held (random
                   weights amplify rounding);
- 17. serve_rwkv   the RWKV6 serving path, ``repro_torch.launch.serve.serve``
+ 18. serve_rwkv   the RWKV6 serving path, ``repro_torch.launch.serve.serve``
                   on rwkv6-3b: 4 x 4096 -> 8 and 4 x 200 -> 8. As in the JAX
                   package, prefill runs ``wkv_chunked`` (plain PyTorch) from
                   the cache's state and decode the O(1) recurrence, so no
                   ``wkv6_scan`` launch at all (held at 0); finite tokens, and
                   the WKV state left finite in the compute type (bf16);
- 18. timing       CUDA-event medians of every kernel and its plain version:
+ 19. timing       CUDA-event medians of every kernel and its plain version:
                   the learners at N = 1 and N = 1024 (the episode's plain
                   version at N = 1 only, its pre-draw timed apart; at N = 1
                   beside a latency floor: each dependent phase's longest
@@ -227,9 +251,9 @@ Then the whole run's seconds, the ``{"kernels": [...]}`` line,
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
-Phases 1-17 and the matching timings are the earlier slices'. The
-learner kernels now hold the whole learner state in shared memory and give
-the first design's bits (phases 2 and 18 read their build and floor).
+Phases 1-6, 8-18 and the matching timings are the earlier slices'; phase 7
+is the fleet runtime's, which launches the two learner kernels at fleet
+width.
 
     python3 chip_smoke.py --profile
 
@@ -1138,6 +1162,281 @@ def phase_tune(space: str, steps: int) -> dict:
            "cpu_replay_steps": replay_steps,
            "configs_equal_to_cpu_through_step": same,
            "warmup_equal_to_cpu": True}
+    emit(out)
+    return out
+
+
+FLEET_WORKLOADS = ("file_server", "video_server", "seq_write", "seq_read")
+FLEET_SEEDS = 256  # x 4 workloads: 1,024 sessions
+#: (chunk, overlap) of the four schedules the scan fleet runs
+FLEET_SCHEDULES = ((None, True), (256, True), (256, False), (300, True))
+FLEET_SAMPLED = 8
+#: the allocator's rounding and the small tensors of the final
+#: recommendation, beside the plan's chunk and pre-draw bytes
+FLEET_PEAK_MARGIN = 64 << 20
+
+
+def fleet_snapshot(tuner, trace) -> dict:
+    """A scan fleet's outputs after a run, on the host: every trace leaf,
+    the learner state, the replay window and cursors, the learner keys and
+    the env keys."""
+    import torch
+
+    agent = tuner.agent
+    (s, a, r, s2), sizes = agent.buffer.storage()
+    return {"trace": {name: getattr(trace, name)
+                      for name in trace._fields},
+            "learner": [x.clone() for x in agent.states],
+            "window": [x.clone() for x in (s, a, r, s2)],
+            "cursors": (agent.buffer._next, int(sizes[0])),
+            "learn_keys": agent._learn_keys.clone(),
+            "env_keys": torch.stack([e.model_state.key.cpu()
+                                     for e in tuner.envs])}
+
+
+def fleet_rows(snap: dict, rows) -> dict:
+    """``fleet_snapshot`` of the sessions ``rows`` only."""
+    return {"trace": {k: v[rows] for k, v in snap["trace"].items()},
+            "learner": [x[rows] for x in snap["learner"]],
+            "window": [x[rows] for x in snap["window"]],
+            "cursors": snap["cursors"], "learn_keys": snap["learn_keys"][rows],
+            "env_keys": snap["env_keys"][rows]}
+
+
+def fleet_differences(a: dict, b: dict) -> list:
+    """The names of the snapshot parts that are not bitwise equal."""
+    import numpy as np
+    import torch
+
+    bad = [f"trace.{k}" for k in a["trace"]
+           if not np.array_equal(a["trace"][k], b["trace"][k])]
+    for part in ("learner", "window"):
+        bad += [f"{part}[{i}]" for i, (x, y) in
+                enumerate(zip(a[part], b[part])) if not torch.equal(x, y)]
+    bad += [part for part in ("learn_keys", "env_keys")
+            if not torch.equal(a[part], b[part])]
+    if a["cursors"] != b["cursors"]:
+        bad.append("cursors")
+    return bad
+
+
+def captured_fleet_run(tuner, steps: int):
+    """``tuner.run(steps)`` with the trace of its fleet episode kept:
+    (result, trace)."""
+    import repro_torch.core.episode as episode
+
+    kept = {}
+    run = episode.run_fleet_episode_scan
+
+    def keep(*args, **kwargs):
+        kept["trace"] = run(*args, **kwargs)
+        return kept["trace"]
+
+    episode.run_fleet_episode_scan = keep
+    try:
+        result = tuner.run(steps)
+    finally:
+        episode.run_fleet_episode_scan = run
+    return result, kept["trace"]
+
+
+def same_history(a, b) -> int:
+    """The first step whose config, objective or restart seconds differ
+    between two ``TuningResult``s (their length when none)."""
+    for i, (x, y) in enumerate(zip(a.history, b.history)):
+        if (x.config, x.objective, x.restart_seconds) != \
+                (y.config, y.objective, y.restart_seconds):
+            return i
+    return min(len(a.history), len(b.history))
+
+
+def phase_fleet(space: str, smi: str) -> dict:
+    """The fleet runtime on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DDPGConfig, FleetTuner, Scalarizer, Tuner, \
+        fleet_act, last_fleet_run_stats
+    from repro_torch.core.ddpg import actor_apply, unflatten
+    from repro_torch.envs import LustreSimEnv, LustreSimV2
+    from repro_torch.kernels.ddpg_learn import ddpg_learn
+    from repro_torch.kernels.episode_learn import episode_learn
+
+    env_cls = LustreSimEnv if space == "2d" else LustreSimV2
+    objective = [{"throughput": 1.0}]
+    grid = (list(FLEET_WORKLOADS), objective, list(range(FLEET_SEEDS)))
+    sessions = len(FLEET_WORKLOADS) * FLEET_SEEDS
+    out = {"phase": "fleet", "space": space, "sessions": sessions,
+           "steps": EP_STEPS, "card": smi}
+
+    # 1. the scan fleet under four schedules, bitwise equal
+    runs, mono = [], None
+    for chunk, overlap in FLEET_SCHEDULES:
+        t0 = time.perf_counter()
+        tuner = FleetTuner.from_grid(*grid, env_cls=env_cls, engine="scan",
+                                     chunk=chunk, overlap=overlap)
+        build_s = time.perf_counter() - t0
+        if mono is None:
+            plan = tuner.memory_plan(steps=EP_STEPS)
+            if not plan["matches_live"]:
+                raise AssertionError(f"{space}: memory_plan does not match "
+                                     f"the live tensors: {plan}")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        episode_learn.launches = 0
+        ddpg_learn.launches = 0
+        t0 = time.perf_counter()
+        result, trace = captured_fleet_run(tuner, EP_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        stats = last_fleet_run_stats()
+        want = -(-sessions // (chunk or sessions))
+        if episode_learn.launches != want or ddpg_learn.launches != 0:
+            raise AssertionError(
+                f"{space} chunk {chunk}: episode_learn launched "
+                f"{episode_learn.launches} times (want {want}), ddpg_learn "
+                f"{ddpg_learn.launches}")
+        if stats["padded_sessions"] != 0:
+            raise AssertionError(f"{space}: padded sessions")
+        snap = fleet_snapshot(tuner, trace)
+        row = {"chunk": chunk, "overlap": overlap,
+               "launches": episode_learn.launches,
+               "build_seconds": build_s,
+               "default_eval_seconds": tuner.timings["default_eval"],
+               "run_seconds": wall, "step_seconds": wall / EP_STEPS,
+               "session_steps_per_second": sessions * EP_STEPS / wall,
+               "launch_device_seconds": stats["launch_device_seconds"],
+               "prepare_seconds": stats["prepare_seconds"],
+               "finish_seconds": stats["finish_seconds"],
+               "staging": stats["staging"],
+               "episode_seconds": tuner.timings["episode"],
+               "replay_seconds": tuner.timings["replay"],
+               "final_seconds": tuner.timings["final"],
+               "peak_device_bytes": peak,
+               "sampled_peak_device_bytes": stats["peak_device_bytes"]}
+        if mono is None:
+            mono, mono_result = snap, result
+            bound = plan["chunk_device_bytes"] + \
+                plan["predraw_transient_bytes"] + FLEET_PEAK_MARGIN
+            if peak > bound:
+                raise AssertionError(
+                    f"{space}: the monolithic run's peak {peak} B is over "
+                    f"the plan's {plan['chunk_device_bytes']} B + pre-draw "
+                    f"{plan['predraw_transient_bytes']} B + margin")
+            row.update(plan_chunk_device_bytes=plan["chunk_device_bytes"],
+                       plan_predraw_transient_bytes=plan[
+                           "predraw_transient_bytes"],
+                       peak_bound_bytes=bound,
+                       summary=result.summary("throughput"))
+            labels, seeds = list(tuner.labels), list(tuner.agent.seeds)
+        else:
+            bad = fleet_differences(snap, mono)
+            if bad:
+                raise AssertionError(f"{space} chunk {chunk} overlap "
+                                     f"{overlap}: {bad} differ from the "
+                                     f"monolithic run")
+            if any(same_history(x, y) != EP_STEPS for x, y in
+                   zip(result.results, mono_result.results)):
+                raise AssertionError(f"{space}: histories differ")
+            row["bitwise_equal_to_monolithic"] = True
+        runs.append(row)
+        del tuner, result, trace, snap
+    out["scan"] = runs
+
+    # 2. independence: sampled sessions against fleets of one
+    picked = [i * sessions // FLEET_SAMPLED for i in range(FLEET_SAMPLED)]
+    for i in picked:
+        workload = labels[i].split("|")[0]
+        one = FleetTuner.from_grid([workload], objective, [seeds[i]],
+                                   env_cls=env_cls, engine="scan")
+        _, trace = captured_fleet_run(one, EP_STEPS)
+        bad = fleet_differences(fleet_snapshot(one, trace),
+                                fleet_rows(mono, [i]))
+        if bad:
+            raise AssertionError(f"{space}: session {i} ({labels[i]}) "
+                                 f"differs from its fleet of one: {bad}")
+    out["independent_sessions"] = picked
+
+    # 3. a fleet of one against the single Tuner, both engines; and what
+    # one evaluation apply of a single ModelEnv costs (why a fleet's
+    # evaluations are batched)
+    probe = env_cls("seq_write", seed=0).to_model_env()
+    default = probe.param_space.default_config()
+    probe.apply(default, eval_run=True)
+    applies = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe.apply(default, eval_run=True)
+        applies.append(time.perf_counter() - t0)
+    out["model_env_apply_seconds"] = statistics.median(applies)
+    for engine in ("host", "scan"):
+        seed = 5
+        env = env_cls("seq_write", seed=seed)
+        if engine == "scan":
+            env = env.to_model_env()
+        single = Tuner(env, Scalarizer(weights=dict(objective[0]),
+                                       specs=env.metric_specs),
+                       seed=seed, engine=engine).run(EP_STEPS)
+        fleet = FleetTuner.from_grid(["seq_write"], objective, [seed],
+                                     env_cls=env_cls,
+                                     engine=engine).run(EP_STEPS)
+        same = same_history(fleet.results[0], single)
+        if same != EP_STEPS:
+            raise AssertionError(f"{space} {engine}: a fleet of one differs "
+                                 f"from the single Tuner at step {same}")
+        out[f"fleet_of_one_{engine}_equal_steps"] = same
+
+    # 4. the host engine at 1,024 sessions
+    t0 = time.perf_counter()
+    host = FleetTuner.from_grid(*grid, env_cls=env_cls, engine="host")
+    build_s = time.perf_counter() - t0
+    ddpg_learn.launches = 0
+    episode_learn.launches = 0
+    t0 = time.perf_counter()
+    result = host.run(EP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ddpg_learn.launches != EP_STEPS or episode_learn.launches != 0:
+        raise AssertionError(f"{space}: the host fleet launched ddpg_learn "
+                             f"{ddpg_learn.launches} times in {EP_STEPS} "
+                             f"steps")
+    if not all(np.isfinite(list(h.metrics.values())).all()
+               for r in result.results for h in r.history):
+        raise AssertionError(f"{space}: non-finite host fleet metrics")
+    summary = result.summary("throughput")
+    if not summary["p50"] > 0:
+        raise AssertionError(f"{space}: median throughput gain "
+                             f"{summary['p50']}")
+    # the act's form: every session's action independent of the fleet's
+    # width (held), and how many rows a batched product would change
+    cfg = DDPGConfig.for_env(host.envs[0])
+    flat = host.agent.states.flat
+    x = torch.as_tensor(host._states(), device=flat.device)
+    rows = min(64, sessions)
+    whole = fleet_act(flat, x, cfg)
+    alone = torch.cat([fleet_act(flat[i:i + 1], x[i:i + 1], cfg)
+                       for i in range(rows)])
+    if not torch.equal(whole[:rows], alone):
+        raise AssertionError(f"{space}: fleet_act depends on the width")
+    with torch.no_grad():
+        bmm = actor_apply(unflatten(flat, cfg)["actor"], x[:, None])[:, 0]
+        bmm_one = torch.cat([actor_apply(unflatten(flat[i:i + 1], cfg)[
+            "actor"], x[i:i + 1, None])[:, 0] for i in range(rows)])
+    out["host"] = {"launches": EP_STEPS, "build_seconds": build_s,
+                   "default_eval_seconds": host.timings["default_eval"],
+                   "run_seconds": wall, "step_seconds": wall / EP_STEPS,
+                   "session_steps_per_second": sessions * EP_STEPS / wall,
+                   "act_seconds": host.timings["act"],
+                   "env_seconds": host.timings["env"],
+                   "learn_seconds": host.timings["learn"],
+                   "final_seconds": host.timings["final"],
+                   "summary": summary}
+    out["act_rows_width_dependent"] = {
+        "rows": rows, "fleet_act": 0,
+        "batched_product": int((bmm[:rows] != bmm_one).any(-1).sum())}
     emit(out)
     return out
 
@@ -3198,6 +3497,7 @@ def main() -> int:
     ep_err = phase_check_episode()
     tunes = [phase_tune("2d", 30), phase_tune("8d", 30)]
     scans = [phase_tune_scan("2d", EP_STEPS), phase_tune_scan("8d", EP_STEPS)]
+    fleets = [phase_fleet("2d", smi), phase_fleet("8d", smi)]
     flash_err = phase_check_flash()
     bwd_err = phase_check_flash_bwd()
     served = phase_serve()
@@ -3231,7 +3531,11 @@ def main() -> int:
         "name": "ddpg_learn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ddpg_learn.cu",
         "replaces": "src/repro/kernels/ddpg_fused.py:316",
-        "launches": sum(t["kernel_launches"] for t in tunes),
+        "launches": sum(t["kernel_launches"] for t in tunes)
+        + sum(f["host"]["launches"] for f in fleets),
+        "launches_by_path": {
+            "tune": sum(t["kernel_launches"] for t in tunes),
+            "fleet_host": sum(f["host"]["launches"] for f in fleets)},
         "max_abs_err": err["max_abs_err"],
         "median_rel_err": err["median_rel_err"],
         "p90_rel_err": err["p90_rel_err"], "max_rel_err": err["max_rel_err"],
@@ -3241,7 +3545,12 @@ def main() -> int:
         "name": "episode_learn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/episode_learn.cu",
         "replaces": "src/repro/kernels/episode_fused.py:266",
-        "launches": sum(t["kernel_launches"] for t in scans),
+        "launches": sum(t["kernel_launches"] for t in scans)
+        + sum(r["launches"] for f in fleets for r in f["scan"]),
+        "launches_by_path": {
+            "tune_scan": sum(t["kernel_launches"] for t in scans),
+            "fleet_scan": sum(r["launches"] for f in fleets
+                              for r in f["scan"])},
         "max_abs_err": ep_err["max_abs_err"],
         "median_rel_err": ep_err["median_rel_err"],
         "p90_rel_err": ep_err["p90_rel_err"],

@@ -22,10 +22,9 @@ from repro_torch import random as jrandom
 from repro_torch.core.ddpg import (
     DDPGConfig,
     OUNoise,
-    actor_apply,
     ddpg_init,
     ddpg_learn_scan,
-    unflatten,
+    fleet_act,
 )
 from repro_torch.core.replay_buffer import ReplayBuffer
 from repro_torch.device import resolve_device
@@ -70,11 +69,10 @@ class MagpieAgent:
         if explore and self.steps_taken < self.warmup_steps:
             a = self._warmup_plan[self.steps_taken]
         else:
-            actor = unflatten(self.state.flat, self.cfg)["actor"]
             x = torch.as_tensor(np.asarray(state, np.float32),
                                 device=self.device)
-            with torch.no_grad():
-                a = actor_apply(actor, x).cpu().numpy()
+            a = fleet_act(self.state.flat[None], x[None],
+                          self.cfg)[0].cpu().numpy()
             if explore:
                 a = a + self.noise()
         self.steps_taken += 1

@@ -338,6 +338,128 @@ def ddpg_learn_scan(state: DDPGState, data: tuple, size: int,
 
 
 # ---------------------------------------------------------------------------
+# Fleet: N independent learners batched over a leading session axis
+# ---------------------------------------------------------------------------
+
+def _mlp_init_keys(keys: torch.Tensor, sizes: Sequence[int]) -> list:
+    """``mlp_init`` of every key of ``keys [N, 2]`` at once: each draw is
+    elementwise in its key, so session i gets ``mlp_init(keys[i])``'s
+    bits."""
+    layer_keys = jrandom.split_keys(keys, len(sizes) - 1)
+    params = []
+    for i, (fan_in, fan_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        bound = float(np.sqrt(6.0 / fan_in))
+        w = jrandom.uniform_keys(layer_keys[:, i], (fan_in, fan_out), -bound,
+                                 bound)
+        params.append({"w": w, "b": torch.zeros(keys.shape[0], fan_out)})
+    return params
+
+
+def fleet_init(keys: torch.Tensor, cfg: DDPGConfig,
+               device=None) -> DDPGState:
+    """N fresh learners from ``keys [N, 2]`` in one pass: a ``DDPGState``
+    with a leading session axis whose session i is ``ddpg_init(keys[i])``
+    bit for bit (the draws are made on the CPU, as ``ddpg_init`` makes
+    them, then moved). Runs on ``cuda`` unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    pair = jrandom.split_keys(keys)
+    actor = _mlp_init_keys(pair[:, 0], cfg.actor_sizes)
+    critic = _mlp_init_keys(pair[:, 1], cfg.critic_sizes)
+
+    def zeros(net):
+        return [{k: torch.zeros_like(v) for k, v in layer.items()}
+                for layer in net]
+
+    nets = {"actor": actor, "critic": critic, "actor_targ": actor,
+            "critic_targ": critic, "actor_mu": zeros(actor),
+            "actor_nu": zeros(actor), "critic_mu": zeros(critic),
+            "critic_nu": zeros(critic)}
+    n = keys.shape[0]
+    return DDPGState(
+        flat=flatten(nets, cfg).to(device),
+        counts=torch.zeros((n, 2), dtype=torch.int32, device=device),
+        step=torch.zeros((n,), dtype=torch.int32, device=device))
+
+
+def _folded_layer(x: torch.Tensor, layer: dict) -> torch.Tensor:
+    """``x @ w + b`` per session as an in-order fold of float32 products
+    over the inputs: elementwise operations only, so every session's
+    outputs are the same bits whatever the number of sessions."""
+    products = x[:, :, None] * layer["w"]  # [N, fan_in, fan_out]
+    acc = products[:, 0]
+    for j in range(1, products.shape[1]):
+        acc = acc + products[:, j]
+    return acc + layer["b"]
+
+
+def fleet_act(flat: torch.Tensor, states: torch.Tensor,
+              cfg: DDPGConfig) -> torch.Tensor:
+    """Deterministic policy actions of every session: the actors of
+    ``flat [N, F]`` (or of its first columns, the actor's) on ``states [N,
+    k]`` -> ``[N, m]``, where ``flat`` lives. ``MagpieAgent.act`` is this
+    function on a fleet of one, so a fleet's session i acts as the single
+    agent would, whatever N.
+
+    A batched product is not used, because its sums are not independent
+    of N: cuBLAS picks its kernel by the batch count (on an H100, 42 and
+    53 of 64 sessions' actions on the 2-D and 8-D spaces changed bits
+    between N = 1 and N = 1,024: ``chip_smoke.py``'s fleet phase reports
+    it). On a card each layer is an in-order fold of products
+    (``_folded_layer``); on the CPU each session runs the single agent's
+    own ``[1, k]`` products, one session at a time."""
+    layout = state_layout(cfg)
+    actor = [{"w": flat[:, wo:wo + fi * fo].reshape(-1, fi, fo),
+              "b": flat[:, bo:bo + fo]}
+             for (wo, bo), (fi, fo) in zip(layout.offsets[0],
+                                           layout.shapes[0])]
+    with torch.no_grad():
+        if flat.device.type == "cpu":
+            return torch.stack([
+                actor_apply([{k: v[i] for k, v in layer.items()}
+                             for layer in actor], states[i])
+                for i in range(flat.shape[0])])
+        x = states
+        for i, layer in enumerate(actor):
+            x = _folded_layer(x, layer)
+            if i + 1 < len(actor):
+                x = torch.relu(x)
+        return torch.sigmoid(x)
+
+
+def fleet_learn_scan(states: DDPGState, data: tuple, sizes: torch.Tensor,
+                     keys: torch.Tensor, cfg: DDPGConfig,
+                     num_updates: int) -> tuple:
+    """``ddpg_learn_scan`` of every session in ONE learner call.
+
+    Samples the ``[N, num_updates, batch]`` indices from ``keys [N, 2]``
+    (threefry, session i bitwise ``sample_minibatch_indices(keys[i], ...,
+    sizes[i])``) on the learners' device, gathers every session's
+    minibatches in one pass over ``data`` (``(s, a, r, s2)``, each ``[N,
+    capacity, ...]``), moves them to the learners' device and runs all
+    N x ``num_updates`` updates through ``kernels.ops.ddpg_inner_loop``:
+    one launch of the CUDA kernel for a CUDA state, the plain PyTorch loop
+    for a CPU state. ``states`` is updated IN PLACE and returned; metrics
+    are ``[N, num_updates]`` tensors. Raises ``ValueError`` if any
+    session's buffer is empty."""
+    from repro_torch.kernels import ops
+
+    sizes = torch.as_tensor(sizes)
+    _require_nonempty(sizes.cpu())
+    where, device = data[0].device, states.flat.device
+    n = states.flat.shape[0]
+    idx = jrandom.randint_keys(keys.to(device), (num_updates, cfg.batch_size),
+                               0, sizes.to(device))
+    idx = idx.to(device=where, dtype=torch.int64)
+    rows = torch.arange(n, device=where)[:, None, None]
+    batches = tuple(x[rows, idx].to(states.flat.device).contiguous()
+                    for x in data)
+    metrics = ops.ddpg_inner_loop(states, batches, cfg=cfg)
+    return states, {"critic_loss": metrics[:, :, 0],
+                    "actor_loss": metrics[:, :, 1],
+                    "q_mean": metrics[:, :, 2]}
+
+
+# ---------------------------------------------------------------------------
 # Exploration noise
 # ---------------------------------------------------------------------------
 

@@ -1,5 +1,6 @@
-"""Whole-episode engine: the Fig. 1 loop for one session, as ONE kernel
-launch on the card.
+"""Whole-episode engine: the Fig. 1 loop for one session, or for a fleet of
+sessions chunk by chunk, as ONE kernel launch per episode (per chunk) on the
+card.
 
 ``core.tuner.Tuner(engine="host")`` steps the loop from Python: every
 tuning step crosses the host boundary to act, apply the config, scalarize
@@ -23,14 +24,21 @@ progressive tuning and the final recommendation work unchanged on top.
 
 The trace is compact: actions as per-knob quantization indices
 (``ParamSpace.index_dtype``) and restart seconds as int32 fixed point
-(``RESTART_FP_SCALE``). Only a single session is ported; the fleet runtime
-(``run_fleet_episode_scan``) is ROADMAP item A7, and the guarded, resilient
-and observation-masked bodies are A10.
+(``RESTART_FP_SCALE``).
+
+The fleet runtime, ``run_fleet_episode_scan``, runs N sessions' episodes
+streamed in chunks: the fleet's state stays in host tensors between chunks,
+each chunk is staged into the same ``EpisodeOperands`` with a leading
+``[C]`` axis and runs in one launch, and its trace and carry are copied
+back (``stream_chunks``, with copy streams beside the compute stream when
+``overlap``). ``core.fleet.FleetTuner(engine="scan")`` drives it. The
+guarded, resilient, masked and shared bodies are ROADMAP item A10.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import time
+from typing import Any, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -95,26 +103,46 @@ def decode_restarts(fp: np.ndarray) -> np.ndarray:
         np.float32)
 
 
-def _consume_exploration(agent, steps: int) -> tuple:
+def _consume_exploration(agent, steps: int,
+                         session: Optional[int] = None) -> tuple:
     """Pre-draw the episode's exploration from the agent's own host streams.
 
     Warmup plans and OU noise are state-independent, so consuming them up
     front leaves the agent's numpy RNG exactly where ``steps`` host-loop
     ``act()`` calls would. Returns (use_warmup [T] bool, warmup_actions
-    [T, m], noise [T, m]) as numpy; advances ``steps_taken``."""
+    [T, m], noise [T, m]) as numpy. A ``MagpieAgent`` (``session=None``)
+    advances its ``steps_taken``; for a ``FleetAgent``, ``session`` picks
+    the session's plan and noise stream and the caller advances the
+    fleet's shared counter once."""
     m = agent.cfg.action_dim
     s0 = agent.steps_taken
+    if session is None:
+        plan, noise_src = agent._warmup_plan, agent.noise
+    else:
+        plan, noise_src = agent._warmup_plans[session], agent.noises[session]
     use_warmup = np.zeros(steps, bool)
     warmup = np.zeros((steps, m), np.float32)
     noise = np.zeros((steps, m), np.float32)
     for t in range(steps):
         if s0 + t < agent.warmup_steps:
             use_warmup[t] = True
-            warmup[t] = agent._warmup_plan[s0 + t]
+            warmup[t] = plan[s0 + t]
         else:
-            noise[t] = agent.noise()
-    agent.steps_taken += steps
+            noise[t] = noise_src()
+    if session is None:
+        agent.steps_taken += steps
     return use_warmup, warmup, noise
+
+
+def _refuse_layers(caller: str, **layers) -> None:
+    """Raise for any policy layer that was asked for: the guarded,
+    resilient, masked, shared and supervised bodies are ROADMAP item A10."""
+    for name, value in layers.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{caller}({name}=...) belongs to the guarded, resilient, "
+                f"masked, shared or supervised episode body, ROADMAP item "
+                f"A10, not yet in repro_torch")
 
 
 def _decode_trace(trace: EpisodeTrace) -> EpisodeTrace:
@@ -141,14 +169,8 @@ def run_episode_scan(env, agent, scalarizer, cur_metrics: dict, steps: int,
     from repro_torch.kernels.episode_learn import (EpisodeKernelSpec,
                                                    EpisodeOperands)
 
-    for name, value in (("policy", policy), ("guard", guard),
-                        ("obs_mask", obs_mask), ("resilience", resilience),
-                        ("health", health)):
-        if value is not None:
-            raise NotImplementedError(
-                f"run_episode_scan({name}=...) belongs to the guarded, "
-                f"resilient or masked episode body, ROADMAP item A10, not "
-                f"yet in repro_torch")
+    _refuse_layers("run_episode_scan", policy=policy, guard=guard,
+                   obs_mask=obs_mask, resilience=resilience, health=health)
     device = agent.device
     if env.device != device:
         raise ValueError(f"env runs on {env.device}, the agent on {device}")
@@ -198,3 +220,399 @@ def run_episode_scan(env, agent, scalarizer, cur_metrics: dict, steps: int,
                                  int(carry.buffer.next_slot[0]),
                                  int(carry.buffer.size[0]))
     return _decode_trace(EpisodeTrace(*(x[0] for x in trace)))
+
+
+# ---------------------------------------------------------------------------
+# Streaming chunked fleet runtime
+# ---------------------------------------------------------------------------
+
+#: stats of the most recent ``run_fleet_episode_scan`` call
+_LAST_FLEET_STATS: dict = {}
+
+
+def last_fleet_run_stats() -> dict:
+    """Measurement record of the most recent fleet episode run.
+
+    Keys: ``sessions``, ``chunk``, ``num_chunks``, ``overlap`` (whether the
+    chunks streamed on copy streams beside the compute stream),
+    ``padded_sessions`` (always 0: a launch takes any number of sessions,
+    so the last chunk runs at its own width), ``peak_device_bytes``
+    (``live_device_bytes`` sampled while each chunk's operands, and then its
+    results, are live: a measured lower bound of the chunked runtime's
+    footprint), ``launch_device_seconds`` (per chunk, the pre-draw and the
+    kernel launch on the compute stream, by CUDA events; empty on the CPU),
+    ``prepare_seconds`` (the host gathering the fleet's state and drawing
+    its exploration), ``finish_seconds`` (decoding the trace and writing
+    the state back) and ``staging``, the stream's measurements from
+    ``stream_chunks``."""
+    return dict(_LAST_FLEET_STATS)
+
+
+def live_device_bytes() -> int:
+    """Bytes in live tensors on the current card
+    (``torch.cuda.memory_allocated``); 0 without a card."""
+    if not torch.cuda.is_available():
+        return 0
+    return int(torch.cuda.memory_allocated())
+
+
+def resolve_chunk(n: int, chunk: Optional[int]) -> int:
+    """Effective chunk size: ``chunk`` (default: the whole fleet), capped at
+    ``n``. The last chunk holds the ragged remainder and runs at its own
+    width. (The reference's rounding to a device-count multiple belongs to
+    a fleet across several cards, ROADMAP item A11d.)"""
+    c = int(chunk) if chunk is not None else int(n)
+    if c <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    return min(c, int(n))
+
+
+def _tensors(tree) -> list:
+    """The tensors of a nest of tuples (``NamedTuple``s included)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def stream_chunks(call, stage, drain, num_chunks: int, overlap: bool = True,
+                  supervisor=None, chaos=None,
+                  staging: Optional[dict] = None, device=None) -> None:
+    """Drive the chunked episode pipeline.
+
+    ``stage(ci)`` copies chunk ``ci``'s operands to ``device`` (from
+    page-locked host tensors, without waiting) and returns them;
+    ``call(args)`` runs the episode on them on the current stream and
+    returns what ``drain`` takes; ``drain(ci, out)`` enqueues the copies of
+    chunk ``ci``'s results back into the host tensors.
+
+    ``overlap=False``, or a CPU ``device``: stage, call, drain one chunk
+    at a time on one stream, waiting for the copies back before the next
+    chunk.
+
+    ``overlap=True`` on a card: chunk k+1 is staged on a host-to-device
+    copy stream while chunk k computes, and chunk k-1 drains on a
+    device-to-host stream. The compute stream waits on the staged chunk's
+    event; the drain stream waits on the computed chunk's event; every
+    tensor used on a stream other than the one it was made on is marked
+    for that stream (``record_stream``), so the caching allocator does not
+    hand its memory out while the other stream still reads it; the host
+    waits on the drain's event before anything reads the host tensors.
+    The same calls run on the same operands in the same order on the
+    compute stream, so the results are bitwise those of the serial
+    schedule.
+
+    ``staging`` (a dict) receives ``async`` (whether copy streams ran),
+    ``stage_seconds`` (host time spent enqueuing the stagings),
+    ``stage_wait_seconds`` (host time blocked on a staged chunk: all of the
+    staging when serial, none when the copy stream runs it),
+    ``drain_seconds`` (host time in the drains, waiting on their copies
+    included) and ``overlap_efficiency`` (1 - wait / stage). The reference's
+    supervised schedule (``supervisor``, ``chaos``) is ROADMAP item A10."""
+    _refuse_layers("stream_chunks", supervisor=supervisor, chaos=chaos)
+    st = staging if staging is not None else {}
+    st.update(**{"async": False, "stage_seconds": 0.0,
+                 "stage_wait_seconds": 0.0, "drain_seconds": 0.0,
+                 "overlap_efficiency": 0.0})
+    if num_chunks <= 0:
+        return None
+    device = torch.device(device) if device is not None else \
+        torch.device("cpu")
+    cuda = device.type == "cuda"
+
+    def wait_host():
+        if cuda:
+            event = torch.cuda.current_stream(device).record_event()
+            event.synchronize()
+
+    if overlap and cuda:
+        st["async"] = True
+        compute = torch.cuda.current_stream(device)
+        h2d, d2h = torch.cuda.Stream(device), torch.cuda.Stream(device)
+
+        def staged(ci):
+            t0 = time.perf_counter()
+            with torch.cuda.stream(h2d):
+                args = stage(ci)
+                event = h2d.record_event()
+            st["stage_seconds"] += time.perf_counter() - t0
+            return args, event
+
+        def drained(ci, out, done):
+            t0 = time.perf_counter()
+            d2h.wait_event(done)
+            for t in _tensors(out):
+                t.record_stream(d2h)
+            with torch.cuda.stream(d2h):
+                drain(ci, out)
+                event = d2h.record_event()
+            event.synchronize()
+            st["drain_seconds"] += time.perf_counter() - t0
+
+        pending, inflight = staged(0), None
+        for ci in range(num_chunks):
+            args, ready = pending
+            compute.wait_event(ready)
+            for t in _tensors(args):
+                t.record_stream(compute)
+            out = call(args)
+            done = compute.record_event()
+            args = pending = None
+            if ci + 1 < num_chunks:
+                pending = staged(ci + 1)
+            if inflight is not None:
+                drained(*inflight)
+            inflight = (ci, out, done)
+        drained(*inflight)
+    else:
+        for ci in range(num_chunks):
+            t0 = time.perf_counter()
+            args = stage(ci)
+            st["stage_seconds"] += time.perf_counter() - t0
+            out = call(args)
+            t0 = time.perf_counter()
+            drain(ci, out)
+            wait_host()
+            st["drain_seconds"] += time.perf_counter() - t0
+        st["stage_wait_seconds"] = st["stage_seconds"]
+    if st["stage_seconds"] > 0.0:
+        st["overlap_efficiency"] = max(
+            0.0, 1.0 - st["stage_wait_seconds"] / st["stage_seconds"])
+    return None
+
+
+def _host_copy(x, pin: bool, dtype=None) -> torch.Tensor:
+    """A new contiguous CPU tensor holding ``x``, page-locked if ``pin``."""
+    if isinstance(x, np.ndarray):
+        x = np.array(x)  # a writable copy (broadcast views are read-only)
+    t = torch.as_tensor(x, dtype=dtype)
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    out.copy_(t)
+    return out
+
+
+def _host_state(x: torch.Tensor, pin: bool) -> tuple:
+    """The host tensor the fleet streams ``x`` through: ``x`` itself where
+    it already is one (a host-store agent's state, written in place), else a
+    new copy; and whether it is a copy (to be written back)."""
+    if x.device.type == "cpu" and x.is_contiguous() and \
+            (x.is_pinned() or not pin):
+        return x, False
+    return _host_copy(x, pin), True
+
+
+def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
+                           cur_metrics: Sequence, steps: int,
+                           learn: bool = True,
+                           devices: Optional[Sequence] = None,
+                           chunk: Optional[int] = None, overlap: bool = True,
+                           policy=None, guard=None, sharing=None,
+                           cell_size: int = 1, obs_mask=None,
+                           resilience=None, health=None, supervisor=None,
+                           chaos=None) -> EpisodeTrace:
+    """N sessions' episodes streamed through the episode kernel, chunk by
+    chunk. Trace leaves are ``[N, T, ...]`` host numpy arrays (restarts in
+    seconds).
+
+    The fleet's state (learners, replay windows and cursors, env states,
+    learner keys) stays in host tensors (page-locked on a card) between
+    chunks. ``chunk=C`` runs ``ceil(N / C)`` chunks (default: one chunk of
+    all N, the monolithic schedule); each chunk's sessions are staged into
+    ``EpisodeOperands`` with a leading ``[C]`` axis and run in ONE launch
+    of the episode kernel (``kernels.ops.episode_inner_loop``: its plain
+    version on the CPU), then the chunk's trace and carry are copied back.
+    A launch takes any number of sessions, so the ragged last chunk runs at
+    its own width: nothing is padded. On the card every session is one
+    block of the kernel, so each session's results are the same bits
+    whatever the chunk; the plain version on the CPU is batched PyTorch,
+    whose products may round differently at different widths.
+
+    ``overlap=True`` streams the chunks on copy streams beside the compute
+    stream (``stream_chunks``), bitwise the serial schedule.
+
+    ``devices`` may name one card (the agent's); more than one is ROADMAP
+    item A11d. ``policy``, ``guard``, ``sharing``, ``cell_size > 1``,
+    ``obs_mask``, ``resilience``, ``health``, ``supervisor`` and ``chaos``
+    belong to the policy layers, ROADMAP item A10, and raise
+    ``NotImplementedError``."""
+    from repro_torch.core.ddpg import DDPGState
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.episode_learn import (EpisodeKernelSpec,
+                                                   EpisodeOperands)
+
+    _refuse_layers("run_fleet_episode_scan", policy=policy, guard=guard,
+                   sharing=sharing, obs_mask=obs_mask, resilience=resilience,
+                   health=health, supervisor=supervisor, chaos=chaos)
+    if cell_size != 1:
+        raise NotImplementedError(
+            "cells of sessions (cell_size > 1) belong to experience "
+            "sharing, ROADMAP item A10, not yet in repro_torch")
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            "a fleet episode across several cards is ROADMAP item A11d; "
+            "pass one device")
+    t_prep = time.perf_counter()
+    models = [e.model for e in envs]
+    if len({m.step_fn for m in models}) != 1:
+        raise ValueError(
+            "fleet sessions must share one env model structure (same space "
+            "and model class); mixed fleets need the host engine")
+    n = len(envs)
+    device = agent.device
+    for e in envs:
+        if e.device != device:
+            raise ValueError(f"an env runs on {e.device}, the agent on "
+                             f"{device}")
+    c = resolve_chunk(n, chunk)
+    num_chunks = -(-n // c)
+    pin = device.type == "cuda"
+    k, m = agent.cfg.state_dim, agent.cfg.action_dim
+
+    # -- the fleet's host state (written back chunk by chunk) --------------
+    es_type = type(envs[0].model_state)
+    env_state = es_type(*(
+        _host_copy(torch.stack([getattr(e.model_state, f) for e in envs]),
+                   pin) for f in es_type._fields))
+    learner = [_host_state(x, pin) for x in agent.states]
+    (bs, ba, br, bs2), sizes = agent.buffer.storage()
+    window = [_host_state(x, pin) for x in (bs, ba, br, bs2)]
+    cursors = (_host_copy(torch.full((n,), agent.buffer._next,
+                                     dtype=torch.int32), pin),
+               _host_copy(sizes, pin, torch.int32))
+    learn_keys = _host_copy(agent._learn_keys, pin)
+
+    # -- operands, read only -------------------------------------------------
+    lo, span = metric_bounds(envs[0].metric_specs, envs[0].state_metrics)
+    w_vec = np.stack([sc.weight_vector(e.state_metrics)
+                      for sc, e in zip(scalarizers, envs)])
+    state_vecs = np.stack([
+        normalize_state(mtr, e.metric_specs, e.state_metrics)
+        for mtr, e in zip(cur_metrics, envs)])
+    objectives = np.array([np.float32(sc.objective(mtr))
+                           for sc, mtr in zip(scalarizers, cur_metrics)],
+                          np.float32)
+    xs = [_consume_exploration(agent, steps, session=i) for i in range(n)]
+    agent.steps_taken += steps
+    f32 = torch.float32
+    operands = dict(
+        use_warmup=_host_copy(np.stack([x[0] for x in xs]), pin),
+        warmup=_host_copy(np.stack([x[1] for x in xs]), pin),
+        noise=_host_copy(np.stack([x[2] for x in xs]), pin),
+        w_vec=_host_copy(w_vec, pin, f32),
+        lo=_host_copy(np.broadcast_to(lo, (n, k)), pin, f32),
+        span=_host_copy(np.broadcast_to(span, (n, k)), pin, f32),
+        params=_host_copy(torch.stack([e.params.vector() for e in envs]),
+                          pin))
+    state_vecs = _host_copy(state_vecs, pin, f32)
+    objectives = _host_copy(objectives, pin, f32)
+    out = EpisodeTrace(
+        action_idx=_host_copy(np.zeros((n, steps, m), np.int32), pin),
+        metrics=_host_copy(np.zeros((n, steps, k), np.float32), pin),
+        rewards=_host_copy(np.zeros((n, steps), np.float32), pin),
+        objectives=_host_copy(np.zeros((n, steps), np.float32), pin),
+        restarts=_host_copy(np.zeros((n, steps), np.int32), pin))
+    spec = EpisodeKernelSpec(model=models[0], cfg=agent.cfg, learn=learn,
+                             num_updates=agent.cfg.updates_per_step)
+    prepare_seconds = time.perf_counter() - t_prep
+
+    peak = [live_device_bytes()]
+    events = []
+
+    def stage(ci):
+        a, b = ci * c, min(n, (ci + 1) * c)
+
+        def dev(x):
+            part = x[a:b]
+            return torch.empty(part.shape, dtype=part.dtype,
+                               device=device).copy_(part, non_blocking=True)
+
+        carry = EpisodeCarry(
+            env_state=es_type(*(dev(x) for x in env_state)),
+            ddpg=DDPGState(*(dev(x) for x, _ in learner)),
+            buffer=BufferState(*(dev(x) for x, _ in window),
+                               *(dev(x) for x in cursors)),
+            learn_key=dev(learn_keys), state_vec=dev(state_vecs),
+            objective=dev(objectives))
+        args = EpisodeOperands(**{name: dev(x)
+                                  for name, x in operands.items()},
+                               carry=carry)
+        peak[0] = max(peak[0], live_device_bytes())
+        return args
+
+    def call(args):
+        if pin:
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+        trace = ops.episode_inner_loop(args, spec=spec)
+        if pin:
+            end.record()
+            events.append((begin, end))
+        return args.carry, trace
+
+    def drain(ci, result):
+        a, b = ci * c, min(n, (ci + 1) * c)
+        carry, trace = result
+        peak[0] = max(peak[0], live_device_bytes())
+        pairs = [*zip(out, trace), *zip(env_state, carry.env_state),
+                 *zip((x for x, _ in learner), carry.ddpg),
+                 *zip((x for x, _ in window), carry.buffer[:4]),
+                 *zip(cursors, carry.buffer[4:]),
+                 (learn_keys, carry.learn_key)]
+        for dst, src in pairs:
+            dst[a:b].copy_(src, non_blocking=True)
+
+    staging: dict = {}
+    stream_chunks(call, stage, drain, num_chunks, overlap=overlap,
+                  staging=staging, device=device)
+
+    t_finish = time.perf_counter()
+    dev_env = es_type(*(x.to(device) for x in env_state))
+    for i, e in enumerate(envs):
+        e.model_state = es_type(*(x[i] for x in dev_env))
+    for (x, copied), dst in zip(learner, agent.states):
+        if copied:
+            dst.copy_(x)
+    agent._learn_keys = learn_keys
+    if learn:
+        agent.buffer.set_storage(*(x for x, _ in window),
+                                 int(cursors[0][0]), int(cursors[1][0]))
+    trace = _decode_trace(out)
+    _LAST_FLEET_STATS.clear()
+    _LAST_FLEET_STATS.update(
+        sessions=n, chunk=c, num_chunks=num_chunks, overlap=overlap,
+        padded_sessions=0, peak_device_bytes=peak[0],
+        launch_device_seconds=[b.elapsed_time(e) / 1e3 for b, e in events],
+        prepare_seconds=prepare_seconds,
+        finish_seconds=time.perf_counter() - t_finish, staging=staging)
+    return trace
+
+
+def precompile_fleet_episode(env, agent, steps: int, sessions: int,
+                             chunk: Optional[int] = None,
+                             devices: Optional[Sequence] = None,
+                             learn: bool = True, policy=None):
+    """Build and load the episode kernel's library (``kernels/build.py``)
+    ahead of ``run()``, after checking that this fleet's configuration fits
+    it (the model, the widths, the shared-memory plan), without touching
+    any tuning state. Returns the loaded library on a card and ``None`` on
+    the CPU, where the plain version needs no build. ``policy`` is ROADMAP
+    item A10, more than one device A11d."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.episode_learn import (EpisodeKernelSpec,
+                                                   _check_model,
+                                                   check_smem_fit)
+
+    _refuse_layers("precompile_fleet_episode", policy=policy)
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            "a fleet episode across several cards is ROADMAP item A11d; "
+            "pass one device")
+    resolve_chunk(sessions, chunk)
+    _check_model(EpisodeKernelSpec(env.model, agent.cfg, learn,
+                                   agent.cfg.updates_per_step))
+    check_smem_fit(agent.cfg, agent.buffer.capacity, env.model.n_samples)
+    if agent.device.type != "cuda":
+        return None
+    return build.load("episode_learn")

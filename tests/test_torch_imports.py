@@ -99,6 +99,14 @@ def test_the_rwkv_slice_is_covered():
     assert (PORT / "kernels" / "csrc" / "wkv6_scan.cu").exists()
 
 
+def test_the_fleet_slice_is_covered():
+    """The import checks below walk the fleet runtime's modules too."""
+    mods = _port_modules()
+    for name in ("repro_torch.core.fleet", "repro_torch.core.episode",
+                 "repro_torch.core.replay_buffer", "repro_torch.core.ddpg"):
+        assert name in mods, name
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
@@ -116,8 +124,10 @@ def test_no_source_file_imports_jax_or_repro():
 
 def test_importing_everything_loads_neither_jax_nor_repro():
     """In a fresh interpreter with no card visible: import every module of
-    the port and everything the packages expose; then a ``Tuner`` built
-    without ``device=`` must raise, and one on the CPU must work."""
+    the port and everything the packages expose; then a ``Tuner``, a
+    ``FleetAgent`` and a ``FleetTuner`` (built directly and by
+    ``from_grid``, on both engines) built without ``device=`` must raise,
+    and ones on the CPU must work."""
     code = f"""
 import importlib, sys
 mods = {_port_modules()!r}
@@ -147,6 +157,29 @@ else:
     raise AssertionError("ModelEnv without a card and without device= ran")
 menv = env.to_model_env(device="cpu")
 Tuner(menv, scal, eval_runs=1, engine="scan", device="cpu").run(2)
+from repro_torch.core import DDPGConfig, FleetAgent, FleetTuner
+grid = (["seq_write"], [{{"throughput": 1.0}}], [0, 1])
+for build in (lambda: FleetAgent(DDPGConfig(12, 2), [0, 1]),
+              lambda: FleetTuner.from_grid(*grid, eval_runs=1),
+              lambda: FleetTuner.from_grid(*grid, eval_runs=1,
+                                           engine="scan")):
+    try:
+        build()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("a fleet without a card and without device= ran")
+cpu_agent = FleetAgent(DDPGConfig(12, 2), [0, 1], device="cpu")
+try:
+    FleetTuner([env, env], [scal, scal], cpu_agent)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("FleetTuner without a card and without device= ran")
+for engine in ("host", "scan"):
+    FleetTuner.from_grid(*grid, eval_runs=1, engine=engine, device="cpu",
+                         ddpg_config=DDPGConfig(12, 2, updates_per_step=2)
+                         ).run(2)
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import serve
 cfg = get_smoke_config("yi-9b")
