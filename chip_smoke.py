@@ -73,9 +73,10 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   from its workload and cell seed; a fleet of one held equal
                   to the single ``Tuner`` on both engines (configs,
                   objectives, restart seconds, all 30 steps); the host
-                  engine on the same 1,024 sessions (``ddpg_learn``
-                  launched exactly once per step, finite metrics, a positive
-                  median throughput gain), with the fleet act held
+                  engine on the same 1,024 sessions for
+                  ``FLEET_HOST_STEPS`` = 10 steps (``ddpg_learn`` launched
+                  exactly once per step, finite metrics, a positive median
+                  throughput gain), with the fleet act held
                   independent of the fleet's width (and the rows a batched
                   product would change reported); ``memory_plan``'s learner
                   and replay bytes held equal to the live tensors and the
@@ -84,6 +85,32 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   wall time per step, the launches' device time, the host's
                   staging, drain, trace replay and evaluations, session-steps
                   per second and ``FleetResult.summary()`` reported;
+ 7b. service      the persistent ``FleetService`` on the 2-D space at the
+                  fleet's width, lease width C = 256: (a) the same 1,024
+                  sessions (seeds ``seed + 1000 x cell`` as ``from_grid``)
+                  joined, one ``advance(30)`` (``episode_learn`` launched
+                  exactly 4 times), all left at ``advance(0)``: every
+                  session's history and ``TuningResult`` held bitwise equal
+                  to ``FleetTuner.from_grid(..., engine="scan",
+                  chunk=256).run(30)``; (b) a quiet service of the 1,024
+                  running 3 x ``advance(10)`` and a churn service of the
+                  same 1,024 where at every boundary 64 new tenants join
+                  and the previous 64 leave (1,088 active, 5 launches, the
+                  last ragged): the survivors held bitwise equal to the
+                  quiet service's, the freed slots reused and the launches
+                  of every advance ``ceil(active / 256)``; (c) the churn
+                  service checkpointed after its first and second advance,
+                  restored from the first and run on through the same
+                  sequence: every result held bitwise equal to the
+                  uninterrupted run's; then the newest checkpoint's
+                  ``tensors.pt`` corrupted: ``restore(fallback=True)`` held
+                  to reach the step before it and ``fallback=False`` to
+                  raise. Reported: wall seconds per step and session-steps
+                  per second of each advance, the launches' device seconds,
+                  the boundaries' seconds (join evaluations, leave
+                  finalizations), the checkpoints' seconds and bytes, the
+                  restores' seconds, and the peak device memory beside
+                  ``memory_plan(chunk=256)`` plus ``FLEET_PEAK_MARGIN``;
   8. check_flash  the ``flash_attention_fwd`` kernels against their plain
                   version on the same numpy inputs: bfloat16 (the
                   tensor-core kernel) at the two serving shapes (B 4, S 512
@@ -251,9 +278,9 @@ Then the whole run's seconds, the ``{"kernels": [...]}`` line,
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
-Phases 1-6, 8-18 and the matching timings are the earlier slices'; phase 7
-is the fleet runtime's, which launches the two learner kernels at fleet
-width.
+Phases 1-7 and 8-18 and the matching timings are the earlier slices';
+phase 7b is the persistent service's, which launches ``episode_learn`` once
+per leased chunk per ``advance``.
 
     python3 chip_smoke.py --profile
 
@@ -1171,6 +1198,9 @@ FLEET_SEEDS = 256  # x 4 workloads: 1,024 sessions
 #: (chunk, overlap) of the four schedules the scan fleet runs
 FLEET_SCHEDULES = ((None, True), (256, True), (256, False), (300, True))
 FLEET_SAMPLED = 8
+#: steps of the host-engine fleet (its numpy simulator is ~1.2-1.5 ms a
+#: session-step, so 30 steps of 1,024 sessions took a minute a space)
+FLEET_HOST_STEPS = 10
 #: the allocator's rounding and the small tensors of the final
 #: recommendation, beside the plan's chunk and pre-draw bytes
 FLEET_PEAK_MARGIN = 64 << 20
@@ -1396,13 +1426,14 @@ def phase_fleet(space: str, smi: str) -> dict:
     ddpg_learn.launches = 0
     episode_learn.launches = 0
     t0 = time.perf_counter()
-    result = host.run(EP_STEPS)
+    result = host.run(FLEET_HOST_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if ddpg_learn.launches != EP_STEPS or episode_learn.launches != 0:
+    if ddpg_learn.launches != FLEET_HOST_STEPS or \
+            episode_learn.launches != 0:
         raise AssertionError(f"{space}: the host fleet launched ddpg_learn "
-                             f"{ddpg_learn.launches} times in {EP_STEPS} "
-                             f"steps")
+                             f"{ddpg_learn.launches} times in "
+                             f"{FLEET_HOST_STEPS} steps")
     if not all(np.isfinite(list(h.metrics.values())).all()
                for r in result.results for h in r.history):
         raise AssertionError(f"{space}: non-finite host fleet metrics")
@@ -1425,10 +1456,13 @@ def phase_fleet(space: str, smi: str) -> dict:
         bmm = actor_apply(unflatten(flat, cfg)["actor"], x[:, None])[:, 0]
         bmm_one = torch.cat([actor_apply(unflatten(flat[i:i + 1], cfg)[
             "actor"], x[i:i + 1, None])[:, 0] for i in range(rows)])
-    out["host"] = {"launches": EP_STEPS, "build_seconds": build_s,
+    out["host"] = {"launches": FLEET_HOST_STEPS, "steps": FLEET_HOST_STEPS,
+                   "build_seconds": build_s,
                    "default_eval_seconds": host.timings["default_eval"],
-                   "run_seconds": wall, "step_seconds": wall / EP_STEPS,
-                   "session_steps_per_second": sessions * EP_STEPS / wall,
+                   "run_seconds": wall,
+                   "step_seconds": wall / FLEET_HOST_STEPS,
+                   "session_steps_per_second":
+                       sessions * FLEET_HOST_STEPS / wall,
                    "act_seconds": host.timings["act"],
                    "env_seconds": host.timings["env"],
                    "learn_seconds": host.timings["learn"],
@@ -1437,6 +1471,258 @@ def phase_fleet(space: str, smi: str) -> dict:
     out["act_rows_width_dependent"] = {
         "rows": rows, "fleet_act": 0,
         "batched_product": int((bmm[:rows] != bmm_one).any(-1).sum())}
+    emit(out)
+    return out
+
+
+#: the service phase: lease width, rounds of steps, tenants that churn
+SERVICE_CHUNK = 256
+SERVICE_ROUNDS = 3
+SERVICE_ROUND_STEPS = 10
+SERVICE_CHURN = 64
+
+
+def service_cells() -> list:
+    """(workload, seed) of ``FleetTuner.from_grid``'s cells over
+    ``FLEET_WORKLOADS`` x ``FLEET_SEEDS`` seeds with one objective: cell
+    ``i`` has seed ``s + 1000 i``."""
+    return [(w, s + 1000 * (i * FLEET_SEEDS + s))
+            for i, w in enumerate(FLEET_WORKLOADS) for s in range(FLEET_SEEDS)]
+
+
+def churn_tenants(r: int) -> list:
+    """(workload, seed) of the 64 tenants that join the churn service at
+    boundary ``r``: seeds apart from every grid cell's."""
+    return [(FLEET_WORKLOADS[k % len(FLEET_WORKLOADS)], 2_000_000 + 1000 * k)
+            for k in range(r * SERVICE_CHURN, (r + 1) * SERVICE_CHURN)]
+
+
+def result_mismatch(a, b) -> list:
+    """The parts of two ``TuningResult``s that are not bitwise equal (the
+    wall-clock fields left out)."""
+    def records(r):
+        return [(h.step, h.config, h.metrics, h.objective, h.reward,
+                 h.restart_seconds) for h in r.history]
+
+    bad = ["history"] if records(a) != records(b) else []
+    return bad + [f for f in ("best_config", "best_objective",
+                              "best_metrics", "default_config",
+                              "default_metrics",
+                              "simulated_restart_seconds")
+                  if getattr(a, f) != getattr(b, f)]
+
+
+def timed_advance(svc, steps: int) -> dict:
+    """``svc.advance(steps)`` with ``episode_learn``'s launches counted
+    from 0 (held: ``ceil(active / SERVICE_CHUNK)``), its wall time, its
+    peak device memory and the service's ``last_stats``."""
+    import torch
+
+    from repro_torch.kernels.episode_learn import episode_learn
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    episode_learn.launches = 0
+    t0 = time.perf_counter()
+    svc.advance(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = svc.last_stats
+    active = stats["sessions"]
+    want = -(-active // SERVICE_CHUNK) if steps else 0
+    if episode_learn.launches != want:
+        raise AssertionError(f"service: {episode_learn.launches} launches "
+                             f"of episode_learn for {active} sessions "
+                             f"(want {want})")
+    boundary = sum(stats["boundary_seconds"].values())
+    row = {"steps": steps, "sessions": active,
+           "launches": episode_learn.launches, "wall_seconds": wall,
+           "boundary_seconds": stats["boundary_seconds"],
+           "peak_device_bytes": torch.cuda.max_memory_allocated() - before}
+    if steps:
+        row.update(step_seconds=(wall - boundary) / steps,
+                   session_steps_per_second=stats["session_steps_per_sec"],
+                   launch_device_seconds=stats["launch_device_seconds"],
+                   staging=stats["staging"])
+    return row
+
+
+def leave_all(svc, sids) -> dict:
+    """Every session of ``sids`` leaves at one ``advance(0)``."""
+    for sid in sids:
+        svc.request_leave(sid)
+    return timed_advance(svc, 0)
+
+
+def churn_round(svc, r: int, batches: list) -> dict:
+    """Boundary ``r`` of the churn sequence: the previous 64 tenants leave,
+    ``churn_tenants(r)`` join (held: into the freed slots, the lease table
+    no longer), then ``advance(SERVICE_ROUND_STEPS)``."""
+    objective = {"throughput": 1.0}
+    freed = []
+    if batches:
+        leases = svc.lease_table()
+        freed = sorted(leases.index(sid) for sid in batches[-1])
+        for sid in batches[-1]:
+            svc.request_leave(sid)
+    width = len(svc.lease_table())
+    batches.append([svc.request_join(w, objective, s)
+                    for w, s in churn_tenants(r)])
+    row = timed_advance(svc, SERVICE_ROUND_STEPS)
+    leases = svc.lease_table()
+    if freed and (len(leases) != width or
+                  sorted(leases.index(sid) for sid in batches[-1]) != freed):
+        raise AssertionError(f"service: boundary {r} did not reuse the "
+                             f"freed slots")
+    return row
+
+
+def phase_service(smi: str) -> dict:
+    """The persistent ``FleetService`` on the card (see the module
+    docstring)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import FleetService, FleetTuner, memory_plan
+
+    objective = {"throughput": 1.0}
+    cells = service_cells()
+    n = len(cells)
+    out = {"phase": "service", "space": "2d", "sessions": n,
+           "chunk": SERVICE_CHUNK, "card": smi}
+
+    # (a) all sessions join at the first boundary and leave after the last:
+    # the static fleet's bits
+    t0 = time.perf_counter()
+    static = FleetTuner.from_grid(list(FLEET_WORKLOADS), [objective],
+                                  list(range(FLEET_SEEDS)), engine="scan",
+                                  chunk=SERVICE_CHUNK).run(EP_STEPS)
+    static_s = time.perf_counter() - t0
+    svc = FleetService(chunk=SERVICE_CHUNK)
+    t0 = time.perf_counter()
+    sids = [svc.request_join(w, objective, s) for w, s in cells]
+    join_s = time.perf_counter() - t0
+    run = timed_advance(svc, EP_STEPS)
+    if run["launches"] != -(-n // SERVICE_CHUNK):  # 4
+        raise AssertionError(f"service: {run['launches']} launches")
+    left = leave_all(svc, sids)
+    bad = [(i, result_mismatch(svc.result(sid), want))
+           for i, (sid, want) in enumerate(zip(sids, static.results))
+           if result_mismatch(svc.result(sid), want)]
+    if bad:
+        raise AssertionError(f"service: {len(bad)} sessions differ from the "
+                             f"static fleet, first {bad[:4]}")
+    out["equals_static"] = {"static_fleet_seconds": static_s,
+                            "request_join_seconds": join_s,
+                            "advance": run, "leave": left,
+                            "sessions_bitwise_equal": n}
+    env = svc.env_factory(*cells[0])
+    plan_args = dict(
+        sessions=n + SERVICE_CHURN, steps=SERVICE_ROUND_STEPS,
+        chunk=SERVICE_CHUNK, capacity=svc.buffer_capacity,
+        env_state_bytes_per_session=sum(x.numel() * x.element_size()
+                                        for x in env.model_state),
+        n_samples=env.model.n_samples)
+    plan = memory_plan(svc.cfg, env.param_space, **plan_args)
+    del svc, static
+
+    # (b) churn at every boundary against a quiet service
+    quiet = FleetService(chunk=SERVICE_CHUNK)
+    q_sids = [quiet.request_join(w, objective, s) for w, s in cells]
+    quiet_rows = [timed_advance(quiet, SERVICE_ROUND_STEPS)
+                  for _ in range(SERVICE_ROUNDS)]
+    quiet_rows.append(leave_all(quiet, q_sids))
+    with tempfile.TemporaryDirectory() as ckpt:
+        churn = FleetService(chunk=SERVICE_CHUNK, checkpoint_dir=ckpt)
+        c_sids = [churn.request_join(w, objective, s) for w, s in cells]
+        batches, churn_rows, saved = [], [], []
+        for r in range(SERVICE_ROUNDS):
+            churn_rows.append(churn_round(churn, r, batches))
+            if r < 2:  # (c)'s checkpoints, after the first two advances
+                t0 = time.perf_counter()
+                path = churn.checkpoint()
+                saved.append({
+                    "step": churn.total_steps,
+                    "seconds": time.perf_counter() - t0,
+                    "bytes": sum(f.stat().st_size for f in
+                                 pathlib.Path(path).iterdir()),
+                    "lease_table": churn.lease_table()})
+        churn_rows.append(leave_all(churn, batches[-1] + c_sids))
+        want = -(-(n + SERVICE_CHURN) // SERVICE_CHUNK)  # 5, the last 64
+        if any(r["sessions"] != n + SERVICE_CHURN or r["launches"] != want
+               for r in churn_rows[:SERVICE_ROUNDS]):
+            raise AssertionError("service: the churn rounds did not run "
+                                 f"{n + SERVICE_CHURN} sessions in {want} "
+                                 "launches")
+        bad = [i for i, (qs, cs) in enumerate(zip(q_sids, c_sids))
+               if result_mismatch(quiet.result(qs), churn.result(cs))]
+        if bad:
+            raise AssertionError(f"service: churn changed {len(bad)} "
+                                 f"survivors, first {bad[:8]}")
+        out["churn"] = {"quiet": quiet_rows, "churn": churn_rows,
+                        "survivors_bitwise_equal": n,
+                        "checkpoints": [{k: v for k, v in s.items()
+                                         if k != "lease_table"}
+                                        for s in saved],
+                        "plan": plan, "plan_bound_bytes":
+                            plan["chunk_device_bytes"]
+                            + plan["predraw_transient_bytes"]
+                            + FLEET_PEAK_MARGIN}
+        del quiet
+
+        # (c) resume from the first checkpoint, the same sequence on
+        t0 = time.perf_counter()
+        resumed = FleetService.restore(ckpt, step=SERVICE_ROUND_STEPS)
+        restore_s = time.perf_counter() - t0
+        if resumed.total_steps != SERVICE_ROUND_STEPS or \
+                resumed.lease_table() != saved[0]["lease_table"]:
+            raise AssertionError("service: the restored leases differ")
+        again = batches[:1]
+        resumed_rows = [churn_round(resumed, r, again)
+                        for r in range(1, SERVICE_ROUNDS)]
+        if again != batches:
+            raise AssertionError("service: the resumed joins got other sids")
+        resumed_rows.append(leave_all(resumed, again[-1] + c_sids))
+        gone = [sid for b in batches for sid in b] + c_sids
+        bad = [sid for sid in gone
+               if result_mismatch(churn.result(sid), resumed.result(sid))]
+        if bad:
+            raise AssertionError(f"service: {len(bad)} resumed sessions "
+                                 f"differ, first sids {bad[:8]}")
+        del resumed
+
+        # the newest checkpoint corrupted: fallback reaches the one before
+        newest = os.path.join(ckpt, sorted(os.listdir(ckpt))[-1],
+                              "tensors.pt")
+        flat = torch.load(newest, weights_only=True)
+        flat[f"sessions/{c_sids[0]}/ddpg/0"][0] += 1.0
+        torch.save(flat, newest)
+        del flat
+        try:
+            FleetService.restore(ckpt)
+        except IOError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("service: a corrupted checkpoint restored")
+        t0 = time.perf_counter()
+        back = FleetService.restore(ckpt, fallback=True)
+        fallback_s = time.perf_counter() - t0
+        if back.total_steps != SERVICE_ROUND_STEPS or \
+                back.lease_table() != saved[0]["lease_table"]:
+            raise AssertionError(f"service: fallback reached step "
+                                 f"{back.total_steps}")
+    out["resume"] = {"restore_seconds": restore_s, "rounds": resumed_rows,
+                     "sessions_bitwise_equal": len(gone),
+                     "corrupted_refused": refused,
+                     "fallback_restore_seconds": fallback_s,
+                     "fallback_step": back.total_steps}
+    out["launches"] = (run["launches"]
+                       + sum(r["launches"] for r in quiet_rows)
+                       + sum(r["launches"] for r in churn_rows)
+                       + sum(r["launches"] for r in resumed_rows))
     emit(out)
     return out
 
@@ -3498,6 +3784,7 @@ def main() -> int:
     tunes = [phase_tune("2d", 30), phase_tune("8d", 30)]
     scans = [phase_tune_scan("2d", EP_STEPS), phase_tune_scan("8d", EP_STEPS)]
     fleets = [phase_fleet("2d", smi), phase_fleet("8d", smi)]
+    service = phase_service(smi)
     flash_err = phase_check_flash()
     bwd_err = phase_check_flash_bwd()
     served = phase_serve()
@@ -3546,11 +3833,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/episode_learn.cu",
         "replaces": "src/repro/kernels/episode_fused.py:266",
         "launches": sum(t["kernel_launches"] for t in scans)
-        + sum(r["launches"] for f in fleets for r in f["scan"]),
+        + sum(r["launches"] for f in fleets for r in f["scan"])
+        + service["launches"],
         "launches_by_path": {
             "tune_scan": sum(t["kernel_launches"] for t in scans),
             "fleet_scan": sum(r["launches"] for f in fleets
-                              for r in f["scan"])},
+                              for r in f["scan"]),
+            "service": service["launches"]},
         "max_abs_err": ep_err["max_abs_err"],
         "median_rel_err": ep_err["median_rel_err"],
         "p90_rel_err": ep_err["p90_rel_err"],

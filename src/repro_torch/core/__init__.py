@@ -10,6 +10,7 @@ from repro_torch.core.fleet import FleetAgent, FleetResult, FleetTuner, \
 from repro_torch.core.replay_buffer import BatchedReplayBuffer, ReplayBuffer
 from repro_torch.core.scalarization import MetricSpec, Scalarizer, \
     normalize_state
+from repro_torch.core.service import FleetService
 from repro_torch.core.tuner import StepRecord, Tuner, TuningResult, \
     evaluate_config, recommend_final
 
@@ -19,7 +20,7 @@ __all__ = [
     "fleet_learn_scan", "last_fleet_run_stats", "live_device_bytes",
     "precompile_fleet_episode", "resolve_chunk", "run_fleet_episode_scan",
     "stream_chunks", "FleetAgent", "FleetResult", "FleetTuner",
-    "evaluate_fleet", "memory_plan", "replay_compact_trace",
+    "evaluate_fleet", "memory_plan", "replay_compact_trace", "FleetService",
     "BatchedReplayBuffer", "ReplayBuffer", "MetricSpec", "Scalarizer",
     "normalize_state", "StepRecord", "Tuner", "TuningResult",
     "evaluate_config", "recommend_final",

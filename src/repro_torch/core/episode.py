@@ -26,12 +26,15 @@ The trace is compact: actions as per-knob quantization indices
 (``ParamSpace.index_dtype``) and restart seconds as int32 fixed point
 (``RESTART_FP_SCALE``).
 
-The fleet runtime, ``run_fleet_episode_scan``, runs N sessions' episodes
+The fleet runtime, ``stream_fleet_episode``, runs N sessions' episodes
 streamed in chunks: the fleet's state stays in host tensors between chunks,
 each chunk is staged into the same ``EpisodeOperands`` with a leading
 ``[C]`` axis and runs in one launch, and its trace and carry are copied
 back (``stream_chunks``, with copy streams beside the compute stream when
-``overlap``). ``core.fleet.FleetTuner(engine="scan")`` drives it. The
+``overlap``). Each session brings its own exploration and FIFO cursor, so
+sessions of different ages share a launch. ``core.fleet.FleetTuner(
+engine="scan")`` drives it through ``run_fleet_episode_scan`` (a fleet of
+one age), ``core.service.FleetService`` directly. The
 guarded, resilient, masked and shared bodies are ROADMAP item A10.
 """
 
@@ -103,35 +106,43 @@ def decode_restarts(fp: np.ndarray) -> np.ndarray:
         np.float32)
 
 
-def _consume_exploration(agent, steps: int,
-                         session: Optional[int] = None) -> tuple:
-    """Pre-draw the episode's exploration from the agent's own host streams.
-
-    Warmup plans and OU noise are state-independent, so consuming them up
-    front leaves the agent's numpy RNG exactly where ``steps`` host-loop
-    ``act()`` calls would. Returns (use_warmup [T] bool, warmup_actions
-    [T, m], noise [T, m]) as numpy. A ``MagpieAgent`` (``session=None``)
-    advances its ``steps_taken``; for a ``FleetAgent``, ``session`` picks
-    the session's plan and noise stream and the caller advances the
-    fleet's shared counter once."""
-    m = agent.cfg.action_dim
-    s0 = agent.steps_taken
-    if session is None:
-        plan, noise_src = agent._warmup_plan, agent.noise
-    else:
-        plan, noise_src = agent._warmup_plans[session], agent.noises[session]
+def draw_exploration(plan: np.ndarray, noise_src, age: int,
+                     warmup_steps: int, steps: int) -> tuple:
+    """Pre-draw ``steps`` steps of one session's exploration at its own age
+    ``age`` (the steps it has taken): the Latin-hypercube ``plan`` while
+    ``age + t < warmup_steps``, then the OU ``noise_src``. Warmup plans and
+    OU noise are state-independent, so drawing them up front leaves the
+    noise stream exactly where ``steps`` host-loop ``act()`` calls would.
+    Returns (use_warmup [T] bool, warmup_actions [T, m], noise [T, m]) as
+    numpy."""
+    m = plan.shape[-1]
     use_warmup = np.zeros(steps, bool)
     warmup = np.zeros((steps, m), np.float32)
     noise = np.zeros((steps, m), np.float32)
     for t in range(steps):
-        if s0 + t < agent.warmup_steps:
+        if age + t < warmup_steps:
             use_warmup[t] = True
-            warmup[t] = plan[s0 + t]
+            warmup[t] = plan[age + t]
         else:
             noise[t] = noise_src()
+    return use_warmup, warmup, noise
+
+
+def _consume_exploration(agent, steps: int,
+                         session: Optional[int] = None) -> tuple:
+    """``draw_exploration`` from an agent's own host streams. A
+    ``MagpieAgent`` (``session=None``) advances its ``steps_taken``; for a
+    ``FleetAgent``, ``session`` picks the session's plan and noise stream
+    and the caller advances the fleet's shared counter once."""
+    if session is None:
+        plan, noise_src = agent._warmup_plan, agent.noise
+    else:
+        plan, noise_src = agent._warmup_plans[session], agent.noises[session]
+    out = draw_exploration(plan, noise_src, agent.steps_taken,
+                           agent.warmup_steps, steps)
     if session is None:
         agent.steps_taken += steps
-    return use_warmup, warmup, noise
+    return out
 
 
 def _refuse_layers(caller: str, **layers) -> None:
@@ -402,87 +413,75 @@ def _host_state(x: torch.Tensor, pin: bool) -> tuple:
     return _host_copy(x, pin), True
 
 
-def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
-                           cur_metrics: Sequence, steps: int,
-                           learn: bool = True,
-                           devices: Optional[Sequence] = None,
-                           chunk: Optional[int] = None, overlap: bool = True,
-                           policy=None, guard=None, sharing=None,
-                           cell_size: int = 1, obs_mask=None,
-                           resilience=None, health=None, supervisor=None,
-                           chaos=None) -> EpisodeTrace:
-    """N sessions' episodes streamed through the episode kernel, chunk by
-    chunk. Trace leaves are ``[N, T, ...]`` host numpy arrays (restarts in
-    seconds).
+def _stacked(tensors: Sequence, pin: bool) -> torch.Tensor:
+    """``torch.stack(tensors)`` on the host, page-locked if ``pin``."""
+    first = tensors[0]
+    out = torch.empty((len(tensors), *first.shape), dtype=first.dtype,
+                      pin_memory=pin)
+    if first.device.type == "cpu":
+        return torch.stack(list(tensors), out=out)
+    return out.copy_(torch.stack(list(tensors)))
 
-    The fleet's state (learners, replay windows and cursors, env states,
-    learner keys) stays in host tensors (page-locked on a card) between
-    chunks. ``chunk=C`` runs ``ceil(N / C)`` chunks (default: one chunk of
-    all N, the monolithic schedule); each chunk's sessions are staged into
-    ``EpisodeOperands`` with a leading ``[C]`` axis and run in ONE launch
-    of the episode kernel (``kernels.ops.episode_inner_loop``: its plain
-    version on the CPU), then the chunk's trace and carry are copied back.
-    A launch takes any number of sessions, so the ragged last chunk runs at
-    its own width: nothing is padded. On the card every session is one
-    block of the kernel, so each session's results are the same bits
-    whatever the chunk; the plain version on the CPU is batched PyTorch,
-    whose products may round differently at different widths.
 
-    ``overlap=True`` streams the chunks on copy streams beside the compute
-    stream (``stream_chunks``), bitwise the serial schedule.
+def check_fleet_envs(envs: Sequence, device) -> None:
+    """Raise unless ``envs`` share one env model structure and all run on
+    ``device``: what one launch of the episode kernel can take."""
+    if len({e.model.step_fn for e in envs}) != 1:
+        raise ValueError(
+            "fleet sessions must share one env model structure (same space "
+            "and model class); mixed fleets need the host engine")
+    for e in envs:
+        if e.device != device:
+            raise ValueError(f"an env runs on {e.device}, the fleet on "
+                             f"{device}")
 
-    ``devices`` may name one card (the agent's); more than one is ROADMAP
-    item A11d. ``policy``, ``guard``, ``sharing``, ``cell_size > 1``,
-    ``obs_mask``, ``resilience``, ``health``, ``supervisor`` and ``chaos``
-    belong to the policy layers, ROADMAP item A10, and raise
-    ``NotImplementedError``."""
+
+def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
+                         cur_metrics: Sequence, exploration: Sequence,
+                         ddpg, buffer: BufferState,
+                         learn_keys: torch.Tensor, *, cfg, steps: int,
+                         learn: bool = True, chunk: Optional[int] = None,
+                         overlap: bool = True, device=None) -> tuple:
+    """The chunk machinery of the fleet episode, for any fleet of sessions
+    of one env model structure: ``FleetTuner``'s (``run_fleet_episode_scan``)
+    and ``FleetService``'s, whose sessions differ in age.
+
+    The caller has checked ``envs`` with ``check_fleet_envs``. Per session
+    ``i``: ``exploration[i]`` is its pre-drawn (use_warmup,
+    warmup, noise) (``draw_exploration`` at its own age), ``ddpg`` (a
+    ``DDPGState``), ``buffer`` (the window and its own cursors
+    ``next_slot``, ``size``) and ``learn_keys`` hold its state in host
+    tensors with a leading ``[N]`` axis (page-locked on a card). The
+    sessions run in ``ceil(N / chunk)`` chunks, one launch of the episode
+    kernel each (``kernels.ops.episode_inner_loop``), the ragged last chunk
+    at its own width; each chunk is staged to ``device``, run and drained
+    back through ``stream_chunks``. The host tensors are written IN PLACE,
+    and each env's model state is gathered from and written back to its
+    env.
+
+    Returns (trace, stats): the decoded host trace (``[N, T, ...]`` numpy,
+    restarts in seconds), and ``sessions``, ``chunk``, ``num_chunks``,
+    ``overlap``, ``padded_sessions`` (0), ``peak_device_bytes``,
+    ``launch_device_seconds`` (CUDA events; empty on the CPU),
+    ``prepare_seconds``, ``finish_seconds`` and ``staging`` (see
+    ``last_fleet_run_stats``)."""
     from repro_torch.core.ddpg import DDPGState
     from repro_torch.kernels import ops
     from repro_torch.kernels.episode_learn import (EpisodeKernelSpec,
                                                    EpisodeOperands)
 
-    _refuse_layers("run_fleet_episode_scan", policy=policy, guard=guard,
-                   sharing=sharing, obs_mask=obs_mask, resilience=resilience,
-                   health=health, supervisor=supervisor, chaos=chaos)
-    if cell_size != 1:
-        raise NotImplementedError(
-            "cells of sessions (cell_size > 1) belong to experience "
-            "sharing, ROADMAP item A10, not yet in repro_torch")
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "a fleet episode across several cards is ROADMAP item A11d; "
-            "pass one device")
     t_prep = time.perf_counter()
-    models = [e.model for e in envs]
-    if len({m.step_fn for m in models}) != 1:
-        raise ValueError(
-            "fleet sessions must share one env model structure (same space "
-            "and model class); mixed fleets need the host engine")
+    device = torch.device(device)
     n = len(envs)
-    device = agent.device
-    for e in envs:
-        if e.device != device:
-            raise ValueError(f"an env runs on {e.device}, the agent on "
-                             f"{device}")
     c = resolve_chunk(n, chunk)
     num_chunks = -(-n // c)
     pin = device.type == "cuda"
-    k, m = agent.cfg.state_dim, agent.cfg.action_dim
+    k, m = cfg.state_dim, cfg.action_dim
 
-    # -- the fleet's host state (written back chunk by chunk) --------------
     es_type = type(envs[0].model_state)
     env_state = es_type(*(
-        _host_copy(torch.stack([getattr(e.model_state, f) for e in envs]),
-                   pin) for f in es_type._fields))
-    learner = [_host_state(x, pin) for x in agent.states]
-    (bs, ba, br, bs2), sizes = agent.buffer.storage()
-    window = [_host_state(x, pin) for x in (bs, ba, br, bs2)]
-    cursors = (_host_copy(torch.full((n,), agent.buffer._next,
-                                     dtype=torch.int32), pin),
-               _host_copy(sizes, pin, torch.int32))
-    learn_keys = _host_copy(agent._learn_keys, pin)
-
-    # -- operands, read only -------------------------------------------------
+        _stacked([getattr(e.model_state, f) for e in envs], pin)
+        for f in es_type._fields))
     lo, span = metric_bounds(envs[0].metric_specs, envs[0].state_metrics)
     w_vec = np.stack([sc.weight_vector(e.state_metrics)
                       for sc, e in zip(scalarizers, envs)])
@@ -492,18 +491,15 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
     objectives = np.array([np.float32(sc.objective(mtr))
                            for sc, mtr in zip(scalarizers, cur_metrics)],
                           np.float32)
-    xs = [_consume_exploration(agent, steps, session=i) for i in range(n)]
-    agent.steps_taken += steps
     f32 = torch.float32
     operands = dict(
-        use_warmup=_host_copy(np.stack([x[0] for x in xs]), pin),
-        warmup=_host_copy(np.stack([x[1] for x in xs]), pin),
-        noise=_host_copy(np.stack([x[2] for x in xs]), pin),
+        use_warmup=_host_copy(np.stack([x[0] for x in exploration]), pin),
+        warmup=_host_copy(np.stack([x[1] for x in exploration]), pin),
+        noise=_host_copy(np.stack([x[2] for x in exploration]), pin),
         w_vec=_host_copy(w_vec, pin, f32),
         lo=_host_copy(np.broadcast_to(lo, (n, k)), pin, f32),
         span=_host_copy(np.broadcast_to(span, (n, k)), pin, f32),
-        params=_host_copy(torch.stack([e.params.vector() for e in envs]),
-                          pin))
+        params=_stacked([e.params.vector() for e in envs], pin))
     state_vecs = _host_copy(state_vecs, pin, f32)
     objectives = _host_copy(objectives, pin, f32)
     out = EpisodeTrace(
@@ -512,8 +508,8 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
         rewards=_host_copy(np.zeros((n, steps), np.float32), pin),
         objectives=_host_copy(np.zeros((n, steps), np.float32), pin),
         restarts=_host_copy(np.zeros((n, steps), np.int32), pin))
-    spec = EpisodeKernelSpec(model=models[0], cfg=agent.cfg, learn=learn,
-                             num_updates=agent.cfg.updates_per_step)
+    spec = EpisodeKernelSpec(model=envs[0].model, cfg=cfg, learn=learn,
+                             num_updates=cfg.updates_per_step)
     prepare_seconds = time.perf_counter() - t_prep
 
     peak = [live_device_bytes()]
@@ -529,9 +525,8 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
 
         carry = EpisodeCarry(
             env_state=es_type(*(dev(x) for x in env_state)),
-            ddpg=DDPGState(*(dev(x) for x, _ in learner)),
-            buffer=BufferState(*(dev(x) for x, _ in window),
-                               *(dev(x) for x in cursors)),
+            ddpg=DDPGState(*(dev(x) for x in ddpg)),
+            buffer=BufferState(*(dev(x) for x in buffer)),
             learn_key=dev(learn_keys), state_vec=dev(state_vecs),
             objective=dev(objectives))
         args = EpisodeOperands(**{name: dev(x)
@@ -556,9 +551,7 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
         carry, trace = result
         peak[0] = max(peak[0], live_device_bytes())
         pairs = [*zip(out, trace), *zip(env_state, carry.env_state),
-                 *zip((x for x, _ in learner), carry.ddpg),
-                 *zip((x for x, _ in window), carry.buffer[:4]),
-                 *zip(cursors, carry.buffer[4:]),
+                 *zip(ddpg, carry.ddpg), *zip(buffer, carry.buffer),
                  (learn_keys, carry.learn_key)]
         for dst, src in pairs:
             dst[a:b].copy_(src, non_blocking=True)
@@ -571,21 +564,103 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
     dev_env = es_type(*(x.to(device) for x in env_state))
     for i, e in enumerate(envs):
         e.model_state = es_type(*(x[i] for x in dev_env))
-    for (x, copied), dst in zip(learner, agent.states):
-        if copied:
-            dst.copy_(x)
-    agent._learn_keys = learn_keys
-    if learn:
-        agent.buffer.set_storage(*(x for x, _ in window),
-                                 int(cursors[0][0]), int(cursors[1][0]))
     trace = _decode_trace(out)
-    _LAST_FLEET_STATS.clear()
-    _LAST_FLEET_STATS.update(
+    stats = dict(
         sessions=n, chunk=c, num_chunks=num_chunks, overlap=overlap,
         padded_sessions=0, peak_device_bytes=peak[0],
         launch_device_seconds=[b.elapsed_time(e) / 1e3 for b, e in events],
         prepare_seconds=prepare_seconds,
         finish_seconds=time.perf_counter() - t_finish, staging=staging)
+    return trace, stats
+
+
+def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
+                           cur_metrics: Sequence, steps: int,
+                           learn: bool = True,
+                           devices: Optional[Sequence] = None,
+                           chunk: Optional[int] = None, overlap: bool = True,
+                           policy=None, guard=None, sharing=None,
+                           cell_size: int = 1, obs_mask=None,
+                           resilience=None, health=None, supervisor=None,
+                           chaos=None) -> EpisodeTrace:
+    """N sessions' episodes streamed through the episode kernel, chunk by
+    chunk. Trace leaves are ``[N, T, ...]`` host numpy arrays (restarts in
+    seconds).
+
+    The fleet's state (learners, replay windows and cursors, env states,
+    learner keys) stays in host tensors (page-locked on a card) between
+    chunks. ``chunk=C`` runs ``ceil(N / C)`` chunks (default: one chunk of
+    all N, the monolithic schedule); each chunk's sessions are staged into
+    ``EpisodeOperands`` with a leading ``[C]`` axis and run in ONE launch
+    of the episode kernel (``kernels.ops.episode_inner_loop``: its plain
+    version on the CPU), then the chunk's trace and carry are copied back
+    (``stream_fleet_episode``). A launch takes any number of sessions, so
+    the ragged last chunk runs at its own width: nothing is padded. On the
+    card every session is one block of the kernel, so each session's
+    results are the same bits whatever the chunk; the plain version on the
+    CPU is batched PyTorch, whose products may round differently at
+    different widths.
+
+    The fleet is one age: every session's exploration is drawn at the
+    agent's shared ``steps_taken``, and its replay windows share one FIFO
+    cursor.
+
+    ``overlap=True`` streams the chunks on copy streams beside the compute
+    stream (``stream_chunks``), bitwise the serial schedule.
+
+    ``devices`` may name one card (the agent's); more than one is ROADMAP
+    item A11d. ``policy``, ``guard``, ``sharing``, ``cell_size > 1``,
+    ``obs_mask``, ``resilience``, ``health``, ``supervisor`` and ``chaos``
+    belong to the policy layers, ROADMAP item A10, and raise
+    ``NotImplementedError``."""
+    from repro_torch.core.ddpg import DDPGState
+
+    _refuse_layers("run_fleet_episode_scan", policy=policy, guard=guard,
+                   sharing=sharing, obs_mask=obs_mask, resilience=resilience,
+                   health=health, supervisor=supervisor, chaos=chaos)
+    if cell_size != 1:
+        raise NotImplementedError(
+            "cells of sessions (cell_size > 1) belong to experience "
+            "sharing, ROADMAP item A10, not yet in repro_torch")
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            "a fleet episode across several cards is ROADMAP item A11d; "
+            "pass one device")
+    t_prep = time.perf_counter()
+    check_fleet_envs(envs, agent.device)
+    n = len(envs)
+    pin = agent.device.type == "cuda"
+    learner = [_host_state(x, pin) for x in agent.states]
+    (bs, ba, br, bs2), sizes = agent.buffer.storage()
+    window = [_host_state(x, pin) for x in (bs, ba, br, bs2)]
+    buffer = BufferState(
+        *(x for x, _ in window),
+        next_slot=_host_copy(torch.full((n,), agent.buffer._next,
+                                        dtype=torch.int32), pin),
+        size=_host_copy(sizes, pin, torch.int32))
+    learn_keys = _host_copy(agent._learn_keys, pin)
+    xs = [_consume_exploration(agent, steps, session=i) for i in range(n)]
+    agent.steps_taken += steps
+    gathered = time.perf_counter() - t_prep
+
+    trace, stats = stream_fleet_episode(
+        envs, scalarizers, cur_metrics, xs,
+        DDPGState(*(x for x, _ in learner)), buffer, learn_keys,
+        cfg=agent.cfg, steps=steps, learn=learn, chunk=chunk,
+        overlap=overlap, device=agent.device)
+
+    t_finish = time.perf_counter()
+    for (x, copied), dst in zip(learner, agent.states):
+        if copied:
+            dst.copy_(x)
+    agent._learn_keys = learn_keys
+    if learn:
+        agent.buffer.set_storage(*buffer[:4], int(buffer.next_slot[0]),
+                                 int(buffer.size[0]))
+    stats["prepare_seconds"] += gathered
+    stats["finish_seconds"] += time.perf_counter() - t_finish
+    _LAST_FLEET_STATS.clear()
+    _LAST_FLEET_STATS.update(stats)
     return trace
 
 

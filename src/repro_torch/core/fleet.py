@@ -22,10 +22,11 @@ Sessions are independent: a fleet of one reproduces the single
 ``Tuner``/``MagpieAgent`` pair exactly (same seed, same trajectory); the
 fleet axis buys throughput and never changes the algorithm.
 
-The policy layers of the reference's fleet (deployment guardrails,
-experience sharing, resilience, chunk supervision) are ROADMAP item A10,
-the persistent ``FleetService`` A9, bfloat16 replay storage A7b and a fleet
-across several cards A11d; each raises ``NotImplementedError`` here.
+The persistent ``FleetService``, whose sessions join and leave while the
+fleet runs, is ``core.service``. The policy layers of the reference's fleet
+(deployment guardrails, experience sharing, resilience, chunk supervision)
+are ROADMAP item A10, bfloat16 replay storage A7b and a fleet across
+several cards A11d; each raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -308,6 +309,42 @@ def evaluate_fleet(envs: Sequence, configs: Sequence, runs: int) -> list:
     return [{k: v / runs for k, v in a.items()} for a in acc]
 
 
+def refuse_policy_layers(caller: str, cell_size: int = 1, **layers) -> None:
+    """Raise ``NotImplementedError`` for any policy layer that was asked
+    for (a layer that is not ``None``, or cells of more than one session):
+    the reference's policy layers are ROADMAP item A10."""
+    for name, value in layers.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{caller}({name}=...) belongs to the reference's policy "
+                f"layers, ROADMAP item A10, not yet in repro_torch")
+    if cell_size != 1:
+        raise NotImplementedError(
+            "cells of sessions (cell_size > 1) belong to experience "
+            "sharing, ROADMAP item A10, not yet in repro_torch")
+
+
+def recommend_final_fleet(envs: Sequence, scalarizers: Sequence,
+                          best_configs: Sequence,
+                          policy_configs: Sequence, runs: int) -> list:
+    """``core.tuner.recommend_final`` of every session, its evaluations
+    through ``evaluate_fleet``: the best configurations seen first, then
+    the policy configurations that differ from them, each env in the single
+    tuner's order. Returns ``(config, evaluated_metrics, replaced)`` per
+    session."""
+    finals = evaluate_fleet(envs, best_configs, runs)
+    out = [(dict(c), m, False) for c, m in zip(best_configs, finals)]
+    differ = [i for i, (p, b) in enumerate(zip(policy_configs, best_configs))
+              if p != b]
+    tried = evaluate_fleet([envs[i] for i in differ],
+                           [policy_configs[i] for i in differ], runs)
+    for i, metrics in zip(differ, tried):
+        sc = scalarizers[i]
+        if sc.objective(metrics) > sc.objective(finals[i]):
+            out[i] = (dict(policy_configs[i]), metrics, True)
+    return out
+
+
 class FleetTuner:
     """N concurrent Magpie tuning sessions sharing one fused learner.
 
@@ -346,18 +383,9 @@ class FleetTuner:
             raise ValueError("envs, scalarizers and agent sessions must align")
         if engine not in ("host", "scan"):
             raise ValueError(f"unknown engine {engine!r}; use 'host' or 'scan'")
-        for name, value in (("policy", policy), ("sharing", sharing),
-                            ("resilience", resilience),
-                            ("supervisor", supervisor), ("chaos", chaos)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"FleetTuner({name}=...) belongs to the reference's "
-                    f"policy layers, ROADMAP item A10, not yet in "
-                    f"repro_torch")
-        if cell_size != 1:
-            raise NotImplementedError(
-                "cells of sessions (cell_size > 1) belong to experience "
-                "sharing, ROADMAP item A10, not yet in repro_torch")
+        refuse_policy_layers("FleetTuner", cell_size, policy=policy,
+                             sharing=sharing, resilience=resilience,
+                             supervisor=supervisor, chaos=chaos)
         device = resolve_device(device)
         if device.type != agent.device.type or None not in (
                 device.index, agent.device.index) and \
@@ -689,27 +717,24 @@ class FleetTuner:
         """The final recommendation of every session, by the rule of
         ``core.tuner.recommend_final``: evaluate the best configuration
         seen, and where the policy's exploit-mode configuration differs,
-        evaluate it too and keep it when its objective is higher. The
-        evaluations go through ``evaluate_fleet``, each env in the single
-        tuner's order (best first, then policy)."""
+        evaluate it too and keep it when its objective is higher
+        (``recommend_final_fleet``)."""
         t0 = time.perf_counter()
         n = len(self.envs)
         policy_actions = self.agent.act(self._states(), explore=False)
         policy_configs = [self.envs[i].param_space.to_config(policy_actions[i])
                           for i in range(n)]
-        finals = evaluate_fleet(self.envs, self.best_configs, self.eval_runs)
-        differ = [i for i in range(n)
-                  if policy_configs[i] != self.best_configs[i]]
-        tried = evaluate_fleet([self.envs[i] for i in differ],
-                               [policy_configs[i] for i in differ],
-                               self.eval_runs)
-        for i, metrics in zip(differ, tried):
-            sc = self.scalarizers[i]
-            if sc.objective(metrics) > sc.objective(finals[i]):
-                finals[i] = metrics
-                self.best_configs[i] = dict(policy_configs[i])
+        finals = []
+        for i, (config, metrics, replaced) in enumerate(
+                recommend_final_fleet(self.envs, self.scalarizers,
+                                      self.best_configs, policy_configs,
+                                      self.eval_runs)):
+            finals.append(metrics)
+            if replaced:
+                self.best_configs[i] = config
                 self.best_metrics[i] = dict(metrics)
-                self.best_objectives[i] = sc.objective(metrics)
+                self.best_objectives[i] = self.scalarizers[i].objective(
+                    metrics)
         self.timings["final"] = time.perf_counter() - t0
         wall = time.perf_counter() - t_wall  # includes final evaluations,
         results = []                         # matching Tuner.run's clock

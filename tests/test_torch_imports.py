@@ -107,6 +107,15 @@ def test_the_fleet_slice_is_covered():
         assert name in mods, name
 
 
+def test_the_service_slice_is_covered():
+    """The import checks below walk the persistent service's modules
+    too."""
+    mods = _port_modules()
+    for name in ("repro_torch.core.service", "repro_torch.core.fleet",
+                 "repro_torch.core.episode", "repro_torch.checkpoint.store"):
+        assert name in mods, name
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
@@ -125,9 +134,9 @@ def test_no_source_file_imports_jax_or_repro():
 def test_importing_everything_loads_neither_jax_nor_repro():
     """In a fresh interpreter with no card visible: import every module of
     the port and everything the packages expose; then a ``Tuner``, a
-    ``FleetAgent`` and a ``FleetTuner`` (built directly and by
-    ``from_grid``, on both engines) built without ``device=`` must raise,
-    and ones on the CPU must work."""
+    ``FleetAgent``, a ``FleetTuner`` (built directly and by ``from_grid``,
+    on both engines) and a ``FleetService`` built without ``device=`` must
+    raise, and ones on the CPU must work."""
     code = f"""
 import importlib, sys
 mods = {_port_modules()!r}
@@ -180,6 +189,20 @@ for engine in ("host", "scan"):
     FleetTuner.from_grid(*grid, eval_runs=1, engine=engine, device="cpu",
                          ddpg_config=DDPGConfig(12, 2, updates_per_step=2)
                          ).run(2)
+from repro_torch.core import FleetService
+try:
+    FleetService(chunk=2)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("FleetService without a card and without device= ran")
+svc = FleetService(chunk=2, eval_runs=1, device="cpu",
+                   ddpg_config=DDPGConfig(12, 2, updates_per_step=2))
+sid = svc.request_join("seq_write", {{"throughput": 1.0}}, 0)
+assert svc.advance(2) == [sid]
+svc.request_leave(sid)
+svc.advance(0)
+assert len(svc.result(sid).history) == 2
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import serve
 cfg = get_smoke_config("yi-9b")
