@@ -111,6 +111,40 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   finalizations), the checkpoints' seconds and bytes, the
                   restores' seconds, and the peak device memory beside
                   ``memory_plan(chunk=256)`` plus ``FLEET_PEAK_MARGIN``;
+ 7c. guard        the per-step episode body and the deployment guardrails
+                  (``DeploymentPolicy(min_gain=0.01, rollback_window=4)``),
+                  ``ddpg_learn`` launched once per step per chunk and
+                  ``episode_learn`` never on the guarded path: (a) the body
+                  (``stepwise_episode``) with ``policy=None`` against
+                  ``episode_learn``, 64 sessions, 30 steps, 2-D and 8-D,
+                  held as ``check_episode`` holds (the warmup decisions
+                  equal; the trace before each session's first differing
+                  decision within ``EP_RTOL``/``EP_RTOL_P90``), whether it
+                  was bitwise reported; (b) the guarded ``Tuner``, 30 steps
+                  on both spaces, against a CPU replay of 10 steps: events
+                  and committed decisions equal through the warmup and
+                  after it; (c) the guarded ``FleetTuner`` on the fleet
+                  phase's 1,024 sessions (2-D, ``GUARD_FLEET_STEPS`` = 20
+                  steps: the phase's time), monolithic and in
+                  chunks of 256 on copy streams: trace, events, guard
+                  state, learner, window and keys bitwise equal, 8 evenly
+                  spaced sessions bitwise equal to guarded fleets of one,
+                  the peak device memory within ``memory_plan``; the
+                  monolithic run's step split by CUDA events (the act, the
+                  draws, the three model steps, the learner's draw, gather
+                  and launch, the rest), its promotions, rejections,
+                  rollbacks and restart seconds beside the unguarded
+                  fleet's; (d) 256 sessions on a ``FaultInjectedModel``
+                  whose throughput collapses to 10 % at step 6 for 10
+                  steps, under ``min_gain=-0.5, rollback_window=10,
+                  rollback_threshold=0.3``: rollbacks inside the window held
+                  (at least one over the fleet, the reference test's pin
+                  for one session); (e) the guarded ``FleetService`` of the
+                  same 1,024 sessions at lease width 256: ``advance(20)``
+                  bitwise equal to the guarded static fleet, and
+                  ``advance(10)``, a checkpoint, a restore and
+                  ``advance(10)`` bitwise equal to that uninterrupted
+                  ``advance(20)``, guard state and counters included;
   8. check_flash  the ``flash_attention_fwd`` kernels against their plain
                   version on the same numpy inputs: bfloat16 (the
                   tensor-core kernel) at the two serving shapes (B 4, S 512
@@ -278,9 +312,10 @@ Then the whole run's seconds, the ``{"kernels": [...]}`` line,
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
-Phases 1-7 and 8-18 and the matching timings are the earlier slices';
-phase 7b is the persistent service's, which launches ``episode_learn`` once
-per leased chunk per ``advance``.
+Phases 1-7b and 8-18 and the matching timings are the earlier slices';
+phase 7c is the guardrails', whose guarded path launches ``ddpg_learn``
+once per step per chunk (its count in the ``kernels`` line's
+``launches_by_path`` under ``guarded``).
 
     python3 chip_smoke.py --profile
 
@@ -1723,6 +1758,428 @@ def phase_service(smi: str) -> dict:
                        + sum(r["launches"] for r in quiet_rows)
                        + sum(r["launches"] for r in churn_rows)
                        + sum(r["launches"] for r in resumed_rows))
+    emit(out)
+    return out
+
+
+#: the guard phase: the policy of ``examples/tune_fleet.py``'s defaults, the
+#: fault scenario of the reference's rollback test, and its sizes
+GUARD_POLICY = {"min_gain": 0.01, "rollback_window": 4}
+GUARD_FAULT_POLICY = {"min_gain": -0.5, "rollback_window": 10,
+                      "rollback_threshold": 0.3}
+GUARD_FAULT = {"start": 6, "duration": 10, "to_fraction": 0.1}
+GUARD_BODY_SESSIONS = 64
+GUARD_FAULT_SESSIONS = 256
+GUARD_FAULT_STEPS = 20
+GUARD_REPLAY_STEPS = 10
+#: steps of the guarded fleets and services ((c), (e)): 20, not the 30 of
+#: the other phases, to keep the whole run under 1,000 s (a guarded step
+#: of 1,024 sessions costs ~0.15 s monolithic and ~0.55 s in chunks of 256
+#: on an H100); the service's resume runs two halves of it
+GUARD_FLEET_STEPS = 20
+
+
+class StepTimer:
+    """CUDA-event times of the parts of the per-step body, by wrapping the
+    functions it looks up at each call: ``fleet_act`` (the act),
+    ``fleet_learn_scan`` (the index draw, the gather and the launch),
+    ``kernels.ops.ddpg_inner_loop`` (the learner launch alone) and the
+    env models' ``step_fn`` (each model step) and ``step_draws``. The
+    wrappers record events only; ``seconds()`` reads them after a
+    synchronize."""
+
+    def __init__(self, envs):
+        import repro_torch.core.ddpg as ddpg
+        import repro_torch.core.episode as episode
+        import repro_torch.kernels.ops as ops
+
+        self.events = {"act": [], "model_steps": [], "step_draws": [],
+                       "learn": [], "learner_launch": []}
+        self.active = False  # only the fleet episode's calls are timed
+        self.patches = [(ddpg, "fleet_act"), (ddpg, "fleet_learn_scan"),
+                        (ops, "ddpg_inner_loop"),
+                        (episode, "run_fleet_episode_scan")]
+        self.saved = [getattr(mod, name) for mod, name in self.patches]
+        self.models = [e.model for e in envs]
+        self.model_fns = [m._step_fn for m in self.models]
+
+        def episode_run(*args, **kwargs):
+            self.active = True
+            try:
+                return self.saved[3](*args, **kwargs)
+            finally:
+                self.active = False
+
+        wrapped = {
+            "fleet_act": self.timed("act", self.saved[0]),
+            "fleet_learn_scan": self.timed("learn", self.saved[1]),
+            "ddpg_inner_loop": self.timed("learner_launch", self.saved[2]),
+            "run_fleet_episode_scan": episode_run}
+        for mod, name in self.patches:
+            setattr(mod, name, wrapped[name])
+        step_fn = self.timed("model_steps", self.models[0]._step_fn)
+        draws = self.timed("step_draws", self.models[0].step_draws)
+        for m in self.models:  # one identity, as check_fleet_envs asks
+            m._step_fn = step_fn
+            m.step_draws = draws
+
+    def timed(self, part, fn):
+        import torch
+
+        def run(*args, **kwargs):
+            if not self.active:
+                return fn(*args, **kwargs)
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events[part].append((begin, end))
+            return out
+        return run
+
+    def restore(self) -> None:
+        for (mod, name), fn in zip(self.patches, self.saved):
+            setattr(mod, name, fn)
+        for m, step_fn in zip(self.models, self.model_fns):
+            m._step_fn = step_fn
+            del m.step_draws  # the class's method again
+
+    def seconds(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {part: sum(b.elapsed_time(e) for b, e in pairs) / 1e3
+                for part, pairs in self.events.items()}
+
+
+def counted(fn):
+    """``fn()`` with both learner kernels' launches counted from 0:
+    (result, ddpg_learn launches, episode_learn launches)."""
+    from repro_torch.kernels.ddpg_learn import ddpg_learn
+    from repro_torch.kernels.episode_learn import episode_learn
+
+    ddpg_learn.launches = 0
+    episode_learn.launches = 0
+    out = fn()
+    return out, ddpg_learn.launches, episode_learn.launches
+
+
+def guard_snapshot(tuner, pair) -> dict:
+    """``fleet_snapshot`` of a guarded fleet run, with its guard state."""
+    trace, guard = pair
+    snap = fleet_snapshot(tuner, trace)
+    snap["guard"] = [x.copy() for x in guard]
+    return snap
+
+
+def guard_differences(a: dict, b: dict) -> list:
+    """``fleet_differences`` and the guard state's leaves that differ."""
+    import numpy as np
+
+    return fleet_differences(a, b) + [
+        f"guard[{i}]" for i, (x, y) in enumerate(zip(a["guard"], b["guard"]))
+        if not np.array_equal(x, y)]
+
+
+def guarded_results_mismatch(a, b) -> list:
+    """``result_mismatch`` and the guardrail records."""
+    bad = result_mismatch(a, b)
+    return bad + (["guardrail_stats"]
+                  if a.guardrail_stats != b.guardrail_stats else [])
+
+
+def phase_guard(smi: str) -> dict:
+    """The per-step body and the deployment guardrails on the card (see
+    the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeploymentPolicy, FleetService, \
+        FleetTuner, Scalarizer, Tuner, stepwise_episode
+    from repro_torch.core.guardrails import EVENT_PROMOTED, EVENT_ROLLBACK
+    from repro_torch.envs import FaultInjectedModel, LustreSimEnv, \
+        LustreSimV2, ModelEnv, throughput_collapse
+    from repro_torch.kernels.episode_learn import episode_learn
+
+    t_phase = time.perf_counter()
+    out = {"phase": "guard", "card": smi}
+    policy = DeploymentPolicy(**GUARD_POLICY)
+    objective = {"throughput": 1.0}
+    launches = 0  # ddpg_learn's, on the guarded path
+
+    # (a) the per-step body with policy=None against the episode kernel
+    body = []
+    for space in ("2d", "8d"):
+        op, spec = episode_inputs(space, GUARD_BODY_SESSIONS, seed=500,
+                                  device="cuda", steps=EP_STEPS)
+        k, s = clone_tree(op), clone_tree(op)
+        tk = episode_learn(k, spec=spec)
+        ts, n_ddpg, n_ep = counted(lambda: stepwise_episode(s, spec=spec))
+        torch.cuda.synchronize()
+        if n_ddpg != EP_STEPS or n_ep != 0:
+            raise AssertionError(f"guard {space}: the body launched "
+                                 f"ddpg_learn {n_ddpg} times, episode_learn "
+                                 f"{n_ep}")
+        bitwise = tree_equal(tk, ts) and tree_equal(k, s)
+        err = compare_episode(ts, tk)
+        row = {"space": space, "sessions": GUARD_BODY_SESSIONS,
+               "steps": EP_STEPS, "bitwise_equal_to_episode_kernel": bitwise,
+               **err}
+        if not bitwise:
+            if err["min_first_differing_step"] < WARMUP_STEPS:
+                raise AssertionError(f"guard {space}: a warmup decision of "
+                                     f"the body differs from the kernel's")
+            if err["median_rel_err"] > EP_RTOL or \
+                    err["p90_rel_err"] > EP_RTOL_P90:
+                raise AssertionError(
+                    f"guard {space}: body vs kernel, median "
+                    f"{err['median_rel_err']}, p90 {err['p90_rel_err']}")
+        body.append(row)
+        del op, k, s
+    out["body"] = body
+
+    # (b) the guarded Tuner, 30 steps on each space, and a CPU replay
+    tuners = []
+    for space, env_cls in (("2d", LustreSimEnv), ("8d", LustreSimV2)):
+        def tuner(device):
+            env = env_cls("seq_write", seed=0).to_model_env(device=device)
+            return Tuner(env, Scalarizer(weights=objective,
+                                         specs=env.metric_specs),
+                         seed=0, engine="scan", policy=policy, device=device)
+
+        gpu = tuner(None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, n_ddpg, n_ep = counted(lambda: gpu.run(EP_STEPS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if n_ddpg != EP_STEPS or n_ep != 0:
+            raise AssertionError(f"guard {space}: a guarded run() launched "
+                                 f"ddpg_learn {n_ddpg} times, episode_learn "
+                                 f"{n_ep}")
+        launches += n_ddpg
+        cpu = tuner("cpu")
+        cpu.run(GUARD_REPLAY_STEPS)
+        same = next((t for t in range(GUARD_REPLAY_STEPS)
+                     if gpu.guard_events[t] != cpu.guard_events[t]
+                     or result.history[t].config != cpu.history[t].config),
+                    GUARD_REPLAY_STEPS)
+        if same <= WARMUP_STEPS:
+            raise AssertionError(f"guard {space}: events or committed "
+                                 f"decisions differ from the CPU replay at "
+                                 f"step {same}")
+        tuners.append({"space": space, "steps": EP_STEPS,
+                       "launches": n_ddpg, "wall_seconds": wall,
+                       "step_seconds": wall / EP_STEPS,
+                       "gain": result.gain("throughput"),
+                       "guardrail_stats": result.guardrail_stats,
+                       "cpu_replay_steps": GUARD_REPLAY_STEPS,
+                       "equal_to_cpu_through_step": same})
+    out["tuner"] = tuners
+
+    # (c) the guarded fleet: monolithic (timed by part) and in chunks
+    grid = (list(FLEET_WORKLOADS), [objective], list(range(FLEET_SEEDS)))
+    sessions = len(FLEET_WORKLOADS) * FLEET_SEEDS
+    fleet_rows_ = []
+    snaps = {}
+    for chunk in (None, SERVICE_CHUNK):
+        tuner = FleetTuner.from_grid(*grid, engine="scan", chunk=chunk,
+                                     policy=policy)
+        plan = tuner.memory_plan(steps=GUARD_FLEET_STEPS)
+        timer = StepTimer(tuner.envs) if chunk is None else None
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            (result, pair), n_ddpg, n_ep = counted(
+                lambda: captured_fleet_run(tuner, GUARD_FLEET_STEPS))
+            torch.cuda.synchronize()
+        finally:
+            if timer is not None:
+                timer.restore()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        chunks = -(-sessions // (chunk or sessions))
+        if n_ddpg != GUARD_FLEET_STEPS * chunks or n_ep != 0:
+            raise AssertionError(f"guard fleet chunk {chunk}: ddpg_learn "
+                                 f"{n_ddpg} launches, episode_learn {n_ep}")
+        launches += n_ddpg
+        bound = plan["chunk_device_bytes"] + \
+            plan["predraw_transient_bytes"] + FLEET_PEAK_MARGIN
+        if peak > bound:
+            raise AssertionError(f"guard fleet: peak {peak} B over the "
+                                 f"plan's {bound} B")
+        episode_s = tuner.timings["episode"]
+        ev = tuner.guard_events
+        row = {"chunk": chunk, "launches": n_ddpg, "run_seconds": wall,
+               "episode_seconds": episode_s,
+               "step_seconds": episode_s / GUARD_FLEET_STEPS,
+               "session_steps_per_second":
+                   sessions * GUARD_FLEET_STEPS / episode_s,
+               "replay_seconds": tuner.timings["replay"],
+               "final_seconds": tuner.timings["final"],
+               "peak_device_bytes": peak, "plan_bound_bytes": bound,
+               "promotions": int(((ev & EVENT_PROMOTED) != 0).sum()),
+               "rejections": int(((ev & EVENT_PROMOTED) == 0).sum()),
+               "rollbacks": int(((ev & EVENT_ROLLBACK) != 0).sum()),
+               "restart_seconds": float(tuner.simulated_restart_seconds.sum())}
+        if timer is not None:
+            parts = timer.seconds()
+            per = {key: v / GUARD_FLEET_STEPS for key, v in parts.items()}
+            per["rest"] = row["step_seconds"] - per["act"] - \
+                per["model_steps"] - per["step_draws"] - per["learn"]
+            row["per_step_device_seconds"] = per
+            row["model_step_calls"] = len(timer.events["model_steps"])
+        snaps[chunk] = guard_snapshot(tuner, pair)
+        fleet_rows_.append(row)
+        if chunk is None:
+            labels, seeds = list(tuner.labels), list(tuner.agent.seeds)
+        else:
+            static = result
+        del tuner, pair
+    bad = guard_differences(snaps[SERVICE_CHUNK], snaps[None])
+    if bad:
+        raise AssertionError(f"guard fleet: chunks of {SERVICE_CHUNK} differ "
+                             f"from the monolithic run: {bad}")
+    picked = [i * sessions // FLEET_SAMPLED for i in range(FLEET_SAMPLED)]
+    for i in picked:
+        one = FleetTuner.from_grid([labels[i].split("|")[0]], [objective],
+                                   [seeds[i]], engine="scan", policy=policy)
+        (_, pair), n_ddpg, _ = counted(
+            lambda: captured_fleet_run(one, GUARD_FLEET_STEPS))
+        launches += n_ddpg
+        snap = guard_snapshot(one, pair)
+        whole = fleet_rows(snaps[None], [i])
+        whole["guard"] = [g[[i]] for g in snaps[None]["guard"]]
+        bad = guard_differences(snap, whole)
+        if bad:
+            raise AssertionError(f"guard fleet: session {i} differs from its "
+                                 f"guarded fleet of one: {bad}")
+    unguarded = FleetTuner.from_grid(*grid, engine="scan")
+    t0 = time.perf_counter()
+    unguarded.run(GUARD_FLEET_STEPS)
+    torch.cuda.synchronize()
+    out["fleet"] = {
+        "sessions": sessions, "steps": GUARD_FLEET_STEPS,
+        "runs": fleet_rows_,
+        "chunked_bitwise_equal_to_monolithic": True,
+        "independent_sessions": picked,
+        "unguarded_episode_seconds": unguarded.timings["episode"],
+        "unguarded_restart_seconds":
+            float(unguarded.simulated_restart_seconds.sum())}
+    del unguarded, snaps
+
+    # (d) faults: a throughput collapse under the reference test's policy
+    fault = throughput_collapse(**GUARD_FAULT)
+    fault_policy = DeploymentPolicy(**GUARD_FAULT_POLICY)
+
+    def faulted_env(workload, seed):
+        base = LustreSimEnv(workload, seed=seed).as_model()
+        return ModelEnv(FaultInjectedModel(base, [fault]), seed=seed)
+
+    faulted = FleetTuner.from_grid(
+        list(FLEET_WORKLOADS), [objective],
+        list(range(GUARD_FAULT_SESSIONS // len(FLEET_WORKLOADS))),
+        env_factory=faulted_env, engine="scan", policy=fault_policy)
+    t0 = time.perf_counter()
+    _, n_ddpg, n_ep = counted(lambda: faulted.run(GUARD_FAULT_STEPS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if n_ddpg != GUARD_FAULT_STEPS or n_ep != 0:
+        raise AssertionError(f"guard faults: ddpg_learn {n_ddpg} launches, "
+                             f"episode_learn {n_ep}")
+    launches += n_ddpg
+    window = slice(GUARD_FAULT["start"],
+                   GUARD_FAULT["start"] + GUARD_FAULT_POLICY[
+                       "rollback_window"])
+    rolled = (faulted.guard_events[:, window] & EVENT_ROLLBACK) != 0
+    in_window = int(rolled.sum())
+    if in_window < 1:
+        raise AssertionError("guard faults: no rollback answered the "
+                             "collapse inside the window")
+    out["faults"] = {
+        "sessions": GUARD_FAULT_SESSIONS, "steps": GUARD_FAULT_STEPS,
+        "launches": n_ddpg, "wall_seconds": wall,
+        "rollbacks_in_window": in_window,
+        "sessions_rolled_back_in_window": int(rolled.any(axis=1).sum()),
+        "rollbacks_outside_window": int(
+            ((faulted.guard_events & EVENT_ROLLBACK) != 0).sum()) - in_window}
+    del faulted
+
+    # (e) the guarded service: advance(30) == the static fleet; a resume
+    cells = service_cells()
+
+    def service(checkpoint_dir=None):
+        svc = FleetService(chunk=SERVICE_CHUNK, policy=policy,
+                           checkpoint_dir=checkpoint_dir)
+        return svc, [svc.request_join(w, objective, s) for w, s in cells]
+
+    def advance(svc, steps):
+        nonlocal launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, n_ddpg, n_ep = counted(lambda: svc.advance(steps))
+        torch.cuda.synchronize()
+        want = steps * -(-svc.last_stats["sessions"] // SERVICE_CHUNK)
+        if n_ddpg != want or n_ep != 0:
+            raise AssertionError(f"guard service: ddpg_learn {n_ddpg} "
+                                 f"launches (want {want}), episode_learn "
+                                 f"{n_ep}")
+        launches += n_ddpg
+        return {"steps": steps, "launches": n_ddpg,
+                "wall_seconds": time.perf_counter() - t0,
+                "guardrails": svc.last_stats["guardrails"]}
+
+    def results(svc, sids):
+        for sid in sids:
+            svc.request_leave(sid)
+        svc.advance(0)
+        return [svc.result(sid) for sid in sids]
+
+    svc, sids = service()
+    run = advance(svc, GUARD_FLEET_STEPS)
+    kept = {sid: (svc._sessions[sid].guard, svc._sessions[sid].guard_counters)
+            for sid in sids}
+    whole = results(svc, sids)
+    bad = [i for i, (a, b) in enumerate(zip(whole, static.results))
+           if guarded_results_mismatch(a, b)]
+    if bad:
+        raise AssertionError(f"guard service: {len(bad)} sessions differ "
+                             f"from the guarded static fleet, first {bad[:8]}")
+    import tempfile
+    half = GUARD_FLEET_STEPS // 2
+    with tempfile.TemporaryDirectory() as ckpt:
+        first, f_sids = service(ckpt)
+        halves = [advance(first, half)]
+        t0 = time.perf_counter()
+        first.checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = FleetService.restore(ckpt)
+        restore_s = time.perf_counter() - t0
+        if resumed.policy != policy:
+            raise AssertionError("guard service: the policy was not restored")
+        halves.append(advance(resumed, GUARD_FLEET_STEPS - half))
+    for sid, f_sid in zip(sids, f_sids):
+        guard, counters = kept[sid]
+        sess = resumed._sessions[f_sid]
+        if counters != sess.guard_counters or not all(
+                np.array_equal(a, b) for a, b in zip(guard, sess.guard)):
+            raise AssertionError(f"guard service: session {f_sid}'s guard "
+                                 f"differs after the resume")
+    bad = [sid for sid, a, b in zip(f_sids, whole, results(resumed, f_sids))
+           if guarded_results_mismatch(a, b)]
+    if bad:
+        raise AssertionError(f"guard service: {len(bad)} resumed sessions "
+                             f"differ, first sids {bad[:8]}")
+    out["service"] = {"advance": run, "sessions_bitwise_equal": len(sids),
+                      "halves": halves, "checkpoint_seconds": ckpt_s,
+                      "restore_seconds": restore_s,
+                      "resumed_bitwise_equal": len(f_sids)}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -3785,6 +4242,7 @@ def main() -> int:
     scans = [phase_tune_scan("2d", EP_STEPS), phase_tune_scan("8d", EP_STEPS)]
     fleets = [phase_fleet("2d", smi), phase_fleet("8d", smi)]
     service = phase_service(smi)
+    guard = phase_guard(smi)
     flash_err = phase_check_flash()
     bwd_err = phase_check_flash_bwd()
     served = phase_serve()
@@ -3819,10 +4277,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ddpg_learn.cu",
         "replaces": "src/repro/kernels/ddpg_fused.py:316",
         "launches": sum(t["kernel_launches"] for t in tunes)
-        + sum(f["host"]["launches"] for f in fleets),
+        + sum(f["host"]["launches"] for f in fleets) + guard["launches"],
         "launches_by_path": {
             "tune": sum(t["kernel_launches"] for t in tunes),
-            "fleet_host": sum(f["host"]["launches"] for f in fleets)},
+            "fleet_host": sum(f["host"]["launches"] for f in fleets),
+            "guarded": guard["launches"]},
         "max_abs_err": err["max_abs_err"],
         "median_rel_err": err["median_rel_err"],
         "p90_rel_err": err["p90_rel_err"], "max_rel_err": err["max_rel_err"],

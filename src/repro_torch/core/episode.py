@@ -34,8 +34,18 @@ back (``stream_chunks``, with copy streams beside the compute stream when
 ``overlap``). Each session brings its own exploration and FIFO cursor, so
 sessions of different ages share a launch. ``core.fleet.FleetTuner(
 engine="scan")`` drives it through ``run_fleet_episode_scan`` (a fleet of
-one age), ``core.service.FleetService`` directly. The
-guarded, resilient, masked and shared bodies are ROADMAP item A10.
+one age), ``core.service.FleetService`` directly.
+
+The per-step body, ``stepwise_episode``, runs the same Fig. 1 loop as a
+Python loop over the steps with every operation at ``[N, ...]``: the act
+(``core.ddpg.fleet_act``), one ``step_draws`` and the model's step, the
+reward, the FIFO store and the learner (``core.ddpg.fleet_learn_scan``, one
+launch of the CUDA learner ``kernels/csrc/ddpg_learn.cu`` per step on the
+card). It is the reference's default scan body (``_build_episode``) and
+what the deployment guardrails are written on: ``policy`` (a
+``core.guardrails.DeploymentPolicy``) runs every chunk through it with the
+guarded transition; ``policy=None`` runs the episode kernel as before.
+The resilient, masked and shared bodies are ROADMAP item A10b.
 """
 
 from __future__ import annotations
@@ -74,6 +84,23 @@ class EpisodeCarry(NamedTuple):
     objective: torch.Tensor
 
 
+class Transition(NamedTuple):
+    """One env transition of every session of a chunk, as the per-step
+    body commits it: the env state after it, the action the live system
+    ran, its raw metrics and restart seconds, the normalized state and its
+    objective, the reward, and the ``(a, r, s2)`` rows the replay stores
+    beside the state before the step."""
+
+    env_state: Any
+    committed: torch.Tensor
+    metrics: torch.Tensor
+    restart: torch.Tensor
+    norm: torch.Tensor
+    objective: torch.Tensor
+    reward: torch.Tensor
+    stored: tuple
+
+
 class EpisodeTrace(NamedTuple):
     """Per-step outputs, steps on the last leading axis. ``action_idx``
     holds knob quantization indices (decode with
@@ -104,6 +131,35 @@ def decode_restarts(fp: np.ndarray) -> np.ndarray:
     """int32 fixed-point restart trace -> float32 seconds (exact)."""
     return (np.asarray(fp).astype(np.float64) / RESTART_FP_SCALE).astype(
         np.float32)
+
+
+def normalized_objective(metrics: torch.Tensor, lo: torch.Tensor,
+                         span: torch.Tensor, w_vec: torch.Tensor) -> tuple:
+    """(normalized state, objective) of raw metrics ``[.., k]``: each metric
+    clipped to [0, 1] within its bounds (0 where the span is 0), then the
+    serial float32 fold of the weighted terms in state order, bit-aligned
+    with ``Scalarizer.objective``."""
+    norm = torch.where(span > 0, torch.clamp((metrics - lo) / span, 0.0, 1.0),
+                       torch.zeros_like(metrics))
+    obj = torch.zeros_like(metrics[..., 0])
+    for j in range(norm.shape[-1]):
+        obj = obj + w_vec[..., j] * norm[..., j]
+    return norm, obj
+
+
+def relative_gain(objective: torch.Tensor, prev: torch.Tensor
+                  ) -> torch.Tensor:
+    """The reward: ``(objective - prev) / max(prev, 1e-6)`` in float32."""
+    return (objective - prev) / torch.clamp(prev, min=1e-6)
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of nests of ``NamedTuple``s (env states,
+    ``GuardState``), leaf by leaf; the nests share one structure."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    return type(first)(*(tree_map(fn, *xs) for xs in zip(*trees)))
 
 
 def draw_exploration(plan: np.ndarray, noise_src, age: int,
@@ -146,42 +202,233 @@ def _consume_exploration(agent, steps: int,
 
 
 def _refuse_layers(caller: str, **layers) -> None:
-    """Raise for any policy layer that was asked for: the guarded,
-    resilient, masked, shared and supervised bodies are ROADMAP item A10."""
+    """Raise for any policy layer that was asked for: the resilient,
+    masked, shared and supervised bodies are ROADMAP item A10b."""
     for name, value in layers.items():
         if value is not None:
             raise NotImplementedError(
-                f"{caller}({name}=...) belongs to the guarded, resilient, "
-                f"masked, shared or supervised episode body, ROADMAP item "
-                f"A10, not yet in repro_torch")
+                f"{caller}({name}=...) belongs to the resilient, masked, "
+                f"shared or supervised episode body, ROADMAP item A10b, not "
+                f"yet in repro_torch")
 
 
-def _decode_trace(trace: EpisodeTrace) -> EpisodeTrace:
-    """Device trace -> host numpy, restart fixed point decoded to seconds."""
-    host = EpisodeTrace(*(x.cpu().numpy() for x in trace))
+def check_guard_composition(policy, **layers) -> None:
+    """The reference's refusals of a ``DeploymentPolicy`` beside another
+    layer that rewrites the body (``sharing``, ``resilience``,
+    ``obs_mask``, ``observation_scopes``): ``ValueError``, the guarded step
+    owning its own observe and learn path."""
+    if policy is None:
+        return
+    for name, value in layers.items():
+        if value is not None:
+            raise ValueError(
+                f"{name} does not compose with DeploymentPolicy guardrails "
+                f"(the guarded step owns its own observe and learn path); "
+                f"run guarded sessions with {name} off")
+
+
+def _decode_trace(trace):
+    """Device trace -> host numpy (its own trace type), restart fixed point
+    decoded to seconds."""
+    host = type(trace)(*(x.cpu().numpy() for x in trace))
     return host._replace(restarts=decode_restarts(host.restarts))
+
+
+def _new_trace(n: int, steps: int, cfg, device, guarded: bool):
+    """A zero trace of N sessions' T steps, as the episode kernel writes
+    it; with the decision trail when ``guarded``."""
+    from repro_torch.kernels.episode_learn import _empty_trace
+
+    trace = _empty_trace(n, steps, cfg, device)
+    if not guarded:
+        return trace
+    from repro_torch.core.guardrails import GuardedEpisodeTrace
+    return GuardedEpisodeTrace(
+        *trace, guard_events=torch.zeros((n, steps), dtype=torch.uint8,
+                                         device=device),
+        shadow_objectives=torch.zeros((n, steps), device=device))
+
+
+def plain_transition(model, params, state, action: torch.Tensor, draws,
+                     objective: torch.Tensor, bounds: tuple) -> Transition:
+    """The unguarded transition: the model's step on ``action`` (``state``
+    carrying this step's key), its normalized state, objective and reward;
+    the replay stores what the live system ran."""
+    env_state, metrics, restart = model.step_fn(params, state, action, draws,
+                                                False)
+    norm, obj = normalized_objective(metrics, *bounds)
+    reward = relative_gain(obj, objective)
+    return Transition(env_state, action, metrics, restart, norm, obj, reward,
+                      (action, reward, norm))
+
+
+def _check_stepwise(op, carry: EpisodeCarry, spec) -> tuple:
+    """Validate what the per-step body reads; return (N, T)."""
+    model, cfg = spec.model, spec.cfg
+    if not model.param_space.is_quantized:
+        raise ValueError("the episode body needs a quantized ParamSpace: "
+                         "continuous knobs have no exact quantization (use "
+                         "the host engine)")
+    if op.use_warmup.dim() != 2:
+        raise ValueError(f"use_warmup must be [N, T], got "
+                         f"{tuple(op.use_warmup.shape)}")
+    n, steps = op.use_warmup.shape
+    k, m = cfg.state_dim, cfg.action_dim
+    if m != model.param_space.dim or k != len(model.state_metrics):
+        raise ValueError(f"cfg (k {k}, m {m}) does not match the model's "
+                         f"{len(model.state_metrics)} metrics and "
+                         f"{model.param_space.dim} knobs")
+    for name, x, shape in (("warmup", op.warmup, (n, steps, m)),
+                           ("noise", op.noise, (n, steps, m)),
+                           ("w_vec", op.w_vec, (n, k)), ("lo", op.lo, (n, k)),
+                           ("span", op.span, (n, k)),
+                           ("state_vec", carry.state_vec, (n, k)),
+                           ("objective", carry.objective, (n,))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(x.shape)}")
+    device = carry.ddpg.flat.device
+    if any(x.device != device for x in _tensors(op)):
+        raise ValueError(f"every operand must be on the learner's {device}")
+    return n, steps
+
+
+def stepwise_episode(op, *, spec, policy=None):
+    """N sessions' T-step episodes as a Python loop over the steps, every
+    operation at ``[N, ...]``: the reference's per-step scan body
+    (``_build_episode``), and with ``policy`` its guarded form
+    (``build_guarded_step``).
+
+    ``op`` is a ``kernels.episode_learn.EpisodeOperands`` whose carry is an
+    ``EpisodeCarry``, or with ``policy`` a ``core.guardrails.GuardedCarry``
+    (the sessions' ``GuardState`` as ``[N, ...]`` tensors); ``spec`` an
+    ``EpisodeKernelSpec`` whose model is any ``EnvModel`` over a quantized
+    space (a ``FaultInjectedModel`` included). Per step: the act
+    (``fleet_act``: an in-order fold on the card, so a session's bits do
+    not depend on N; then the warmup or noise override), ONE
+    ``model.step_draws`` and the model's step (three of them, sharing the
+    draws, when guarded: ``guarded_transition``), the reward, the FIFO
+    write at each session's own cursor, and the learner
+    (``fleet_learn_scan``: the threefry index draw, then one launch of the
+    CUDA learner on the card, ``ddpg_learn_plain`` on the CPU). The carry
+    (and the guard) is updated IN PLACE, as the episode kernel updates it;
+    returns the trace (``EpisodeTrace``, or ``GuardedEpisodeTrace``, of
+    tensors ``[N, T, ...]``, restarts as int32 fixed point).
+
+    The host reads the replay sizes once; the cursors then advance on the
+    host as on the device, so no step waits for the device beyond what
+    the model's step and the learner do themselves."""
+    from repro_torch import random as jrandom
+    from repro_torch.core.action_mapping import coord_maps
+    from repro_torch.core.ddpg import fleet_act, fleet_learn_scan, \
+        state_layout
+
+    guarded = policy is not None
+    if guarded:
+        from repro_torch.core.guardrails import guarded_transition
+        carry, guard = op.carry.base, op.carry.guard
+    else:
+        carry, guard = op.carry, None
+    n, steps = _check_stepwise(op, carry, spec)
+    cfg, model = spec.cfg, spec.model
+    device = carry.ddpg.flat.device
+    params = type(model.params).from_vector(op.params)
+    maps = coord_maps(model.param_space)
+    actor = state_layout(cfg).offsets[1][0][0]
+    bounds = (op.lo, op.span, op.w_vec)
+    bs, ba, br, bs2, nxt, size = carry.buffer
+    cap = bs.shape[1]
+    sizes = size.to("cpu", copy=True)  # a host copy, also on the CPU
+    rows = torch.arange(n, device=device)
+    learn = bool(spec.learn)
+    updates = learn and spec.num_updates > 0
+    env_state, state_vec, objective = carry.env_state, carry.state_vec, \
+        carry.objective
+    trace = _new_trace(n, steps, cfg, device, guarded)
+    for t in range(steps):
+        with torch.no_grad():
+            explored = torch.clamp(
+                fleet_act(carry.ddpg.flat[:, :actor], state_vec, cfg)
+                + op.noise[:, t], 0.0, 1.0)
+            action = torch.where(op.use_warmup[:, t, None],
+                                 torch.clamp(op.warmup[:, t], 0.0, 1.0),
+                                 explored)
+            key, draws = model.step_draws(model.key_of(env_state))
+            live = model.with_key(env_state, key)
+            if guarded:
+                tr, guard, event, shadow = guarded_transition(
+                    model, params, live, action, draws, objective, bounds,
+                    guard, policy)
+                trace.guard_events[:, t] = event
+                trace.shadow_objectives[:, t] = shadow
+            else:
+                tr = plain_transition(model, params, live, action, draws,
+                                      objective, bounds)
+            if learn:  # FIFO write, store before learn
+                i = nxt.long()
+                a_row, r_row, s2_row = tr.stored
+                bs[rows, i] = state_vec
+                ba[rows, i] = a_row
+                br[rows, i] = r_row
+                bs2[rows, i] = s2_row
+                nxt.copy_((nxt + 1) % cap)
+                size.copy_(torch.clamp(size + 1, max=cap))
+                sizes = torch.clamp(sizes + 1, max=cap)
+        if updates:
+            pair = jrandom.split_keys(carry.learn_key, 2)
+            carry.learn_key.copy_(pair[:, 0])
+            fleet_learn_scan(carry.ddpg, (bs, ba, br, bs2), sizes,
+                             pair[:, 1], cfg, spec.num_updates)
+        trace.action_idx[:, t] = torch.stack(
+            [maps[j](tr.committed[:, j])["idx"]
+             for j in range(cfg.action_dim)], dim=-1).to(torch.int32)
+        trace.metrics[:, t] = tr.metrics
+        trace.rewards[:, t] = tr.reward
+        trace.objectives[:, t] = tr.objective
+        trace.restarts[:, t] = _encode_restart(tr.restart)
+        env_state, state_vec, objective = tr.env_state, tr.norm, tr.objective
+    for dst, src in zip(_tensors(carry.env_state), _tensors(env_state)):
+        dst.copy_(src)
+    carry.state_vec.copy_(state_vec)
+    carry.objective.copy_(objective)
+    if guarded:
+        for dst, src in zip(op.carry.guard, guard):
+            dst.copy_(src)
+    return trace
 
 
 def run_episode_scan(env, agent, scalarizer, cur_metrics: dict, steps: int,
                      learn: bool = True, policy=None, guard=None,
-                     obs_mask=None, resilience=None,
-                     health=None) -> EpisodeTrace:
+                     obs_mask=None, resilience=None, health=None):
     """Run ``steps`` tuning iterations of one session in one episode call.
 
-    ``env`` must be a ``ModelEnv`` over a ``LustreSimModel`` on the agent's
-    device. Mutates ``env`` (model state), ``agent`` (learner state, key,
-    buffer, noise stream, steps_taken) exactly as the host loop would and
-    returns the per-step trace as numpy (``EpisodeTrace``, restarts in
-    seconds). The guarded, resilient and observation-masked bodies
-    (``policy``, ``guard``, ``obs_mask``, ``resilience``, ``health``) are
-    ROADMAP item A10 and raise ``NotImplementedError``."""
+    ``env`` must be a ``ModelEnv`` on the agent's device. Mutates ``env``
+    (model state), ``agent`` (learner state, key, buffer, noise stream,
+    steps_taken) exactly as the host loop would and returns the per-step
+    trace as numpy (``EpisodeTrace``, restarts in seconds). With
+    ``policy=None`` the episode is ONE call of the episode kernel (a
+    ``LustreSimModel`` env).
+
+    ``policy`` (``core.guardrails.DeploymentPolicy``) runs the guarded
+    shadow/canary body instead (``stepwise_episode``: one learner launch a
+    step); ``guard`` must then be the session's ``GuardState``
+    (``init_guard_state`` for a fresh session) and the return value becomes
+    ``(GuardedEpisodeTrace, GuardState)``: the updated guard carries to the
+    next progressive run. ``policy`` beside ``obs_mask`` or ``resilience``
+    raises the reference's ``ValueError``; the resilient and masked bodies
+    (``obs_mask``, ``resilience``, ``health``) are ROADMAP item A10b and
+    raise ``NotImplementedError``."""
     from repro_torch.core.ddpg import DDPGState
     from repro_torch.kernels import ops
     from repro_torch.kernels.episode_learn import (EpisodeKernelSpec,
                                                    EpisodeOperands)
 
-    _refuse_layers("run_episode_scan", policy=policy, guard=guard,
-                   obs_mask=obs_mask, resilience=resilience, health=health)
+    check_guard_composition(policy, obs_mask=obs_mask, resilience=resilience)
+    _refuse_layers("run_episode_scan", obs_mask=obs_mask,
+                   resilience=resilience, health=health)
+    if policy is not None and guard is None:
+        raise ValueError("guarded runs need a GuardState (core.guardrails."
+                         "init_guard_state seeded from the live config)")
     device = agent.device
     if env.device != device:
         raise ValueError(f"env runs on {env.device}, the agent on {device}")
@@ -203,10 +450,7 @@ def run_episode_scan(env, agent, scalarizer, cur_metrics: dict, steps: int,
         *(b.unsqueeze(0).clone() for b in (bs, ba, br, bs2)),
         next_slot=one(agent.buffer._next, torch.int32),
         size=one(size, torch.int32))
-    es = env.model_state
-    env_state = type(es)(key=es.key.unsqueeze(0).clone(),
-                         warmth=es.warmth.reshape(1).clone(),
-                         last_values=es.last_values.unsqueeze(0).clone())
+    env_state = tree_map(lambda x: x.unsqueeze(0).clone(), env.model_state)
     st = agent.state
     ddpg = DDPGState(st.flat.unsqueeze(0), st.counts.unsqueeze(0),
                      st.step.unsqueeze(0))
@@ -219,18 +463,27 @@ def run_episode_scan(env, agent, scalarizer, cur_metrics: dict, steps: int,
         params=env.params.vector().unsqueeze(0).contiguous(), carry=carry)
     spec = EpisodeKernelSpec(model=model, cfg=agent.cfg, learn=learn,
                              num_updates=agent.cfg.updates_per_step)
-    trace = ops.episode_inner_loop(op, spec=spec)
+    if policy is None:
+        trace = ops.episode_inner_loop(op, spec=spec)
+    else:
+        from repro_torch.core.guardrails import GuardedCarry, guard_row, \
+            guard_to_numpy, guard_to_torch, stack_guards
+        guard = guard_to_torch(stack_guards([guard]), device)
+        trace = stepwise_episode(
+            op._replace(carry=GuardedCarry(base=carry, guard=guard)),
+            spec=spec, policy=policy)
 
     # write the carried state back (the learner was updated in place)
-    env.model_state = type(es)(key=carry.env_state.key[0],
-                               warmth=carry.env_state.warmth[0],
-                               last_values=carry.env_state.last_values[0])
+    env.model_state = tree_map(lambda x: x[0], carry.env_state)
     agent._learn_key = carry.learn_key[0].cpu()
     if learn:
         agent.buffer.set_storage(*(b[0] for b in carry.buffer[:4]),
                                  int(carry.buffer.next_slot[0]),
                                  int(carry.buffer.size[0]))
-    return _decode_trace(EpisodeTrace(*(x[0] for x in trace)))
+    out = _decode_trace(type(trace)(*(x[0] for x in trace)))
+    if policy is None:
+        return out
+    return out, guard_row(guard_to_numpy(guard), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +573,7 @@ def stream_chunks(call, stage, drain, num_chunks: int, overlap: bool = True,
     staging when serial, none when the copy stream runs it),
     ``drain_seconds`` (host time in the drains, waiting on their copies
     included) and ``overlap_efficiency`` (1 - wait / stage). The reference's
-    supervised schedule (``supervisor``, ``chaos``) is ROADMAP item A10."""
+    supervised schedule (``supervisor``, ``chaos``) is ROADMAP item A10b."""
     _refuse_layers("stream_chunks", supervisor=supervisor, chaos=chaos)
     st = staging if staging is not None else {}
     st.update(**{"async": False, "stage_seconds": 0.0,
@@ -441,7 +694,8 @@ def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
                          ddpg, buffer: BufferState,
                          learn_keys: torch.Tensor, *, cfg, steps: int,
                          learn: bool = True, chunk: Optional[int] = None,
-                         overlap: bool = True, device=None) -> tuple:
+                         overlap: bool = True, device=None, policy=None,
+                         guard=None) -> tuple:
     """The chunk machinery of the fleet episode, for any fleet of sessions
     of one env model structure: ``FleetTuner``'s (``run_fleet_episode_scan``)
     and ``FleetService``'s, whose sessions differ in age.
@@ -452,18 +706,22 @@ def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
     ``DDPGState``), ``buffer`` (the window and its own cursors
     ``next_slot``, ``size``) and ``learn_keys`` hold its state in host
     tensors with a leading ``[N]`` axis (page-locked on a card). The
-    sessions run in ``ceil(N / chunk)`` chunks, one launch of the episode
-    kernel each (``kernels.ops.episode_inner_loop``), the ragged last chunk
-    at its own width; each chunk is staged to ``device``, run and drained
-    back through ``stream_chunks``. The host tensors are written IN PLACE,
-    and each env's model state is gathered from and written back to its
-    env.
+    sessions run in ``ceil(N / chunk)`` chunks, one call each, the ragged
+    last chunk at its own width; each chunk is staged to ``device``, run
+    and drained back through ``stream_chunks``. With ``policy=None`` a call
+    is one launch of the episode kernel (``kernels.ops.
+    episode_inner_loop``); with a ``DeploymentPolicy`` it is the guarded
+    per-step body (``stepwise_episode``), and ``guard`` (a ``GuardState`` of
+    host tensors ``[N, ...]``) is staged and drained with the rest. The
+    host tensors are written IN PLACE, and each env's model state (a nest
+    of tensors) is gathered from and written back to its env.
 
     Returns (trace, stats): the decoded host trace (``[N, T, ...]`` numpy,
-    restarts in seconds), and ``sessions``, ``chunk``, ``num_chunks``,
-    ``overlap``, ``padded_sessions`` (0), ``peak_device_bytes``,
-    ``launch_device_seconds`` (CUDA events; empty on the CPU),
-    ``prepare_seconds``, ``finish_seconds`` and ``staging`` (see
+    restarts in seconds; a ``GuardedEpisodeTrace`` when guarded), and
+    ``sessions``, ``chunk``, ``num_chunks``, ``overlap``,
+    ``padded_sessions`` (0), ``peak_device_bytes``,
+    ``launch_device_seconds`` (CUDA events around each call; empty on the
+    CPU), ``prepare_seconds``, ``finish_seconds`` and ``staging`` (see
     ``last_fleet_run_stats``)."""
     from repro_torch.core.ddpg import DDPGState
     from repro_torch.kernels import ops
@@ -472,16 +730,21 @@ def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
 
     t_prep = time.perf_counter()
     device = torch.device(device)
+    guarded = policy is not None
+    if guarded:
+        from repro_torch.core.guardrails import GuardedCarry, \
+            GuardedEpisodeTrace, GuardState
+        if guard is None:
+            raise ValueError("guarded fleet runs need a stacked GuardState "
+                             "(core.guardrails.init_fleet_guard_state)")
     n = len(envs)
     c = resolve_chunk(n, chunk)
     num_chunks = -(-n // c)
     pin = device.type == "cuda"
     k, m = cfg.state_dim, cfg.action_dim
 
-    es_type = type(envs[0].model_state)
-    env_state = es_type(*(
-        _stacked([getattr(e.model_state, f) for e in envs], pin)
-        for f in es_type._fields))
+    env_state = tree_map(lambda *xs: _stacked(xs, pin),
+                         *(e.model_state for e in envs))
     lo, span = metric_bounds(envs[0].metric_specs, envs[0].state_metrics)
     w_vec = np.stack([sc.weight_vector(e.state_metrics)
                       for sc, e in zip(scalarizers, envs)])
@@ -502,12 +765,20 @@ def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
         params=_stacked([e.params.vector() for e in envs], pin))
     state_vecs = _host_copy(state_vecs, pin, f32)
     objectives = _host_copy(objectives, pin, f32)
-    out = EpisodeTrace(
+    fields = dict(
         action_idx=_host_copy(np.zeros((n, steps, m), np.int32), pin),
         metrics=_host_copy(np.zeros((n, steps, k), np.float32), pin),
         rewards=_host_copy(np.zeros((n, steps), np.float32), pin),
         objectives=_host_copy(np.zeros((n, steps), np.float32), pin),
         restarts=_host_copy(np.zeros((n, steps), np.int32), pin))
+    if guarded:
+        out = GuardedEpisodeTrace(
+            **fields,
+            guard_events=_host_copy(np.zeros((n, steps), np.uint8), pin),
+            shadow_objectives=_host_copy(np.zeros((n, steps), np.float32),
+                                         pin))
+    else:
+        out = EpisodeTrace(**fields)
     spec = EpisodeKernelSpec(model=envs[0].model, cfg=cfg, learn=learn,
                              num_updates=cfg.updates_per_step)
     prepare_seconds = time.perf_counter() - t_prep
@@ -524,11 +795,14 @@ def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
                                device=device).copy_(part, non_blocking=True)
 
         carry = EpisodeCarry(
-            env_state=es_type(*(dev(x) for x in env_state)),
+            env_state=tree_map(dev, env_state),
             ddpg=DDPGState(*(dev(x) for x in ddpg)),
             buffer=BufferState(*(dev(x) for x in buffer)),
             learn_key=dev(learn_keys), state_vec=dev(state_vecs),
             objective=dev(objectives))
+        if guarded:
+            carry = GuardedCarry(base=carry,
+                                 guard=GuardState(*(dev(x) for x in guard)))
         args = EpisodeOperands(**{name: dev(x)
                                   for name, x in operands.items()},
                                carry=carry)
@@ -540,7 +814,10 @@ def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
             begin = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             begin.record()
-        trace = ops.episode_inner_loop(args, spec=spec)
+        if guarded:
+            trace = stepwise_episode(args, spec=spec, policy=policy)
+        else:
+            trace = ops.episode_inner_loop(args, spec=spec)
         if pin:
             end.record()
             events.append((begin, end))
@@ -550,9 +827,13 @@ def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
         a, b = ci * c, min(n, (ci + 1) * c)
         carry, trace = result
         peak[0] = max(peak[0], live_device_bytes())
-        pairs = [*zip(out, trace), *zip(env_state, carry.env_state),
-                 *zip(ddpg, carry.ddpg), *zip(buffer, carry.buffer),
-                 (learn_keys, carry.learn_key)]
+        pairs = list(zip(out, trace))
+        if guarded:
+            pairs += zip(guard, carry.guard)
+            carry = carry.base
+        pairs += [*zip(_tensors(env_state), _tensors(carry.env_state)),
+                  *zip(ddpg, carry.ddpg), *zip(buffer, carry.buffer),
+                  (learn_keys, carry.learn_key)]
         for dst, src in pairs:
             dst[a:b].copy_(src, non_blocking=True)
 
@@ -561,9 +842,9 @@ def stream_fleet_episode(envs: Sequence, scalarizers: Sequence,
                   staging=staging, device=device)
 
     t_finish = time.perf_counter()
-    dev_env = es_type(*(x.to(device) for x in env_state))
+    dev_env = tree_map(lambda x: x.to(device), env_state)
     for i, e in enumerate(envs):
-        e.model_state = es_type(*(x[i] for x in dev_env))
+        e.model_state = tree_map(lambda x: x[i], dev_env)
     trace = _decode_trace(out)
     stats = dict(
         sessions=n, chunk=c, num_chunks=num_chunks, overlap=overlap,
@@ -582,10 +863,9 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
                            policy=None, guard=None, sharing=None,
                            cell_size: int = 1, obs_mask=None,
                            resilience=None, health=None, supervisor=None,
-                           chaos=None) -> EpisodeTrace:
-    """N sessions' episodes streamed through the episode kernel, chunk by
-    chunk. Trace leaves are ``[N, T, ...]`` host numpy arrays (restarts in
-    seconds).
+                           chaos=None):
+    """N sessions' episodes streamed chunk by chunk. Trace leaves are
+    ``[N, T, ...]`` host numpy arrays (restarts in seconds).
 
     The fleet's state (learners, replay windows and cursors, env states,
     learner keys) stays in host tensors (page-locked on a card) between
@@ -608,24 +888,35 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
     ``overlap=True`` streams the chunks on copy streams beside the compute
     stream (``stream_chunks``), bitwise the serial schedule.
 
+    ``policy``/``guard`` run the guarded shadow/canary body
+    (``stepwise_episode``, one learner launch a step per chunk): ``guard``
+    is a stacked ``[N, ...]`` numpy ``GuardState``
+    (``init_fleet_guard_state``); it rides the chunk carry like all fleet
+    state and the return value becomes ``(GuardedEpisodeTrace,
+    GuardState)``. ``policy`` beside ``sharing`` or ``resilience`` raises
+    the reference's ``ValueError``.
+
     ``devices`` may name one card (the agent's); more than one is ROADMAP
-    item A11d. ``policy``, ``guard``, ``sharing``, ``cell_size > 1``,
-    ``obs_mask``, ``resilience``, ``health``, ``supervisor`` and ``chaos``
-    belong to the policy layers, ROADMAP item A10, and raise
-    ``NotImplementedError``."""
+    item A11d. ``sharing``, ``cell_size > 1``, ``obs_mask``,
+    ``resilience``, ``health``, ``supervisor`` and ``chaos`` belong to the
+    policy layers of ROADMAP item A10b and raise ``NotImplementedError``."""
     from repro_torch.core.ddpg import DDPGState
 
-    _refuse_layers("run_fleet_episode_scan", policy=policy, guard=guard,
-                   sharing=sharing, obs_mask=obs_mask, resilience=resilience,
-                   health=health, supervisor=supervisor, chaos=chaos)
+    check_guard_composition(policy, sharing=sharing, resilience=resilience)
+    _refuse_layers("run_fleet_episode_scan", sharing=sharing,
+                   obs_mask=obs_mask, resilience=resilience, health=health,
+                   supervisor=supervisor, chaos=chaos)
     if cell_size != 1:
         raise NotImplementedError(
             "cells of sessions (cell_size > 1) belong to experience "
-            "sharing, ROADMAP item A10, not yet in repro_torch")
+            "sharing, ROADMAP item A10b, not yet in repro_torch")
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             "a fleet episode across several cards is ROADMAP item A11d; "
             "pass one device")
+    if policy is not None and guard is None:
+        raise ValueError("guarded fleet runs need a stacked GuardState "
+                         "(core.guardrails.init_fleet_guard_state)")
     t_prep = time.perf_counter()
     check_fleet_envs(envs, agent.device)
     n = len(envs)
@@ -641,13 +932,17 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
     learn_keys = _host_copy(agent._learn_keys, pin)
     xs = [_consume_exploration(agent, steps, session=i) for i in range(n)]
     agent.steps_taken += steps
+    if policy is not None:
+        from repro_torch.core.guardrails import guard_to_numpy, \
+            guard_to_torch
+        guard = guard_to_torch(guard, pin=pin)
     gathered = time.perf_counter() - t_prep
 
     trace, stats = stream_fleet_episode(
         envs, scalarizers, cur_metrics, xs,
         DDPGState(*(x for x, _ in learner)), buffer, learn_keys,
         cfg=agent.cfg, steps=steps, learn=learn, chunk=chunk,
-        overlap=overlap, device=agent.device)
+        overlap=overlap, device=agent.device, policy=policy, guard=guard)
 
     t_finish = time.perf_counter()
     for (x, copied), dst in zip(learner, agent.states):
@@ -661,33 +956,43 @@ def run_fleet_episode_scan(envs: Sequence, agent, scalarizers: Sequence,
     stats["finish_seconds"] += time.perf_counter() - t_finish
     _LAST_FLEET_STATS.clear()
     _LAST_FLEET_STATS.update(stats)
-    return trace
+    if policy is None:
+        return trace
+    return trace, guard_to_numpy(guard)
 
 
 def precompile_fleet_episode(env, agent, steps: int, sessions: int,
                              chunk: Optional[int] = None,
                              devices: Optional[Sequence] = None,
                              learn: bool = True, policy=None):
-    """Build and load the episode kernel's library (``kernels/build.py``)
-    ahead of ``run()``, after checking that this fleet's configuration fits
-    it (the model, the widths, the shared-memory plan), without touching
-    any tuning state. Returns the loaded library on a card and ``None`` on
-    the CPU, where the plain version needs no build. ``policy`` is ROADMAP
-    item A10, more than one device A11d."""
+    """Build and load the library this fleet's episodes launch
+    (``kernels/build.py``) ahead of ``run()``, after checking that the
+    configuration fits it, without touching any tuning state: the episode
+    kernel's (the model, the widths, its shared-memory plan), or with a
+    ``policy`` the learner kernel's, which the guarded body launches once a
+    step. Returns the loaded library on a card and ``None`` on the CPU,
+    where the plain versions need no build. More than one device is ROADMAP
+    item A11d."""
     from repro_torch.kernels import build
     from repro_torch.kernels.episode_learn import (EpisodeKernelSpec,
                                                    _check_model,
                                                    check_smem_fit)
 
-    _refuse_layers("precompile_fleet_episode", policy=policy)
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             "a fleet episode across several cards is ROADMAP item A11d; "
             "pass one device")
     resolve_chunk(sessions, chunk)
-    _check_model(EpisodeKernelSpec(env.model, agent.cfg, learn,
-                                   agent.cfg.updates_per_step))
-    check_smem_fit(agent.cfg, agent.buffer.capacity, env.model.n_samples)
+    if policy is not None:
+        from repro_torch.kernels import ddpg_learn
+        ddpg_learn.check_smem_fit(agent.cfg)
+        name = "ddpg_learn"
+    else:
+        _check_model(EpisodeKernelSpec(env.model, agent.cfg, learn,
+                                       agent.cfg.updates_per_step))
+        check_smem_fit(agent.cfg, agent.buffer.capacity,
+                       env.model.n_samples)
+        name = "episode_learn"
     if agent.device.type != "cuda":
         return None
-    return build.load("episode_learn")
+    return build.load(name)

@@ -23,10 +23,13 @@ Sessions are independent: a fleet of one reproduces the single
 fleet axis buys throughput and never changes the algorithm.
 
 The persistent ``FleetService``, whose sessions join and leave while the
-fleet runs, is ``core.service``. The policy layers of the reference's fleet
-(deployment guardrails, experience sharing, resilience, chunk supervision)
-are ROADMAP item A10, bfloat16 replay storage A7b and a fleet across
-several cards A11d; each raises ``NotImplementedError`` here.
+fleet runs, is ``core.service``. ``policy`` (a
+``core.guardrails.DeploymentPolicy``) guards every session of a scan fleet:
+each chunk then runs the guarded per-step body, one learner launch a step.
+The other policy layers of the reference's fleet (experience sharing,
+resilience, chunk supervision) are ROADMAP item A10b, bfloat16 replay
+storage A7b and a fleet across several cards A11d; each raises
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from repro_torch.core.ddpg import (
     fleet_learn_scan,
     state_layout,
 )
+from repro_torch.core.episode import check_guard_composition, tree_map
 from repro_torch.core.replay_buffer import BatchedReplayBuffer, _is_float32
 from repro_torch.core.scalarization import Scalarizer, normalize_state
 from repro_torch.core.tuner import (
@@ -73,7 +77,7 @@ class FleetAgent:
     chunked episode runtime stages one chunk at a time, so a 1,024-session
     fleet never holds its whole state on the card. Either way each session's
     values are the same bits. ``replay_dtype`` other than float32 (ROADMAP
-    A7b) and ``replay_groups`` (shared replay, A10) raise.
+    A7b) and ``replay_groups`` (shared replay, A10b) raise.
     """
 
     def __init__(self, cfg: DDPGConfig, seeds: Sequence[int],
@@ -89,7 +93,7 @@ class FleetAgent:
         if replay_groups is not None:
             raise NotImplementedError(
                 "replay_groups (shared replay) belongs to experience "
-                "sharing, ROADMAP item A10, not yet in repro_torch")
+                "sharing, ROADMAP item A10b, not yet in repro_torch")
         self.cfg = cfg
         self.seeds = list(seeds)
         self.num_sessions = len(self.seeds)
@@ -285,12 +289,11 @@ def evaluate_fleet(envs: Sequence, configs: Sequence, runs: int) -> list:
         if not e.param_space.validate(c):
             raise ValueError(f"invalid config {c}")
     model, device = envs[0].model, envs[0].device
-    es_type = type(envs[0].model_state)
     actions = torch.as_tensor(np.stack([
         e.param_space.to_action(c) for e, c in zip(envs, configs)]),
         device=device)
-    state = es_type(*(torch.stack([getattr(e.model_state, f) for e in envs])
-                      for f in es_type._fields))
+    state = tree_map(lambda *xs: torch.stack(xs),
+                     *(e.model_state for e in envs))
     params = type(envs[0].params)(*(torch.stack(x) for x in zip(
         *(e.params for e in envs))))
     acc = [dict() for _ in envs]
@@ -302,7 +305,7 @@ def evaluate_fleet(envs: Sequence, configs: Sequence, runs: int) -> list:
             for name, v in zip(envs[0].state_metrics, row):
                 a[name] = a.get(name, 0.0) + float(v)
     for i, (e, c) in enumerate(zip(envs, configs)):
-        e.model_state = es_type(*(x[i] for x in state))
+        e.model_state = tree_map(lambda x: x[i], state)
         for _ in range(runs):
             e._last_scope = e._scope(c, e._last_config)
             e._last_config = dict(c)
@@ -312,16 +315,17 @@ def evaluate_fleet(envs: Sequence, configs: Sequence, runs: int) -> list:
 def refuse_policy_layers(caller: str, cell_size: int = 1, **layers) -> None:
     """Raise ``NotImplementedError`` for any policy layer that was asked
     for (a layer that is not ``None``, or cells of more than one session):
-    the reference's policy layers are ROADMAP item A10."""
+    the reference's sharing, resilience and supervision layers are ROADMAP
+    item A10b."""
     for name, value in layers.items():
         if value is not None:
             raise NotImplementedError(
                 f"{caller}({name}=...) belongs to the reference's policy "
-                f"layers, ROADMAP item A10, not yet in repro_torch")
+                f"layers, ROADMAP item A10b, not yet in repro_torch")
     if cell_size != 1:
         raise NotImplementedError(
             "cells of sessions (cell_size > 1) belong to experience "
-            "sharing, ROADMAP item A10, not yet in repro_torch")
+            "sharing, ROADMAP item A10b, not yet in repro_torch")
 
 
 def recommend_final_fleet(envs: Sequence, scalarizers: Sequence,
@@ -359,10 +363,14 @@ class FleetTuner:
 
     ``device`` (``cuda`` unless given) must be the agent's. Evaluations
     (the default configurations, the final recommendation) go through
-    ``evaluate_fleet``. The policy layers (``policy``, ``sharing``,
-    ``cell_size > 1``, ``resilience``, ``supervisor``, ``chaos``) are ROADMAP
-    item A10 and ``devices`` naming more than one card A11d; they raise
-    ``NotImplementedError``.
+    ``evaluate_fleet``. ``policy`` (``core.guardrails.DeploymentPolicy``,
+    scan engine only) guards every session: per-session counters,
+    ``guard_events`` ``[N, T]``, ``shadow_objectives`` and
+    ``guardrail_stats(i)``; the guard persists across ``run()`` calls. The
+    other policy layers (``sharing``, ``cell_size > 1``, ``resilience``,
+    ``supervisor``, ``chaos``) are ROADMAP item A10b and ``devices`` naming
+    more than one card A11d; they raise ``NotImplementedError`` (``policy``
+    beside ``sharing`` or ``resilience``: the reference's ``ValueError``).
 
     ``timings`` holds the host seconds of the last construction and run by
     part: ``default_eval``; for the scan engine ``episode`` (the streamed
@@ -383,9 +391,15 @@ class FleetTuner:
             raise ValueError("envs, scalarizers and agent sessions must align")
         if engine not in ("host", "scan"):
             raise ValueError(f"unknown engine {engine!r}; use 'host' or 'scan'")
-        refuse_policy_layers("FleetTuner", cell_size, policy=policy,
-                             sharing=sharing, resilience=resilience,
-                             supervisor=supervisor, chaos=chaos)
+        if policy is not None and engine != "scan":
+            raise ValueError(
+                "DeploymentPolicy guardrails run inside the episode; use "
+                "engine='scan' (the host loop has no shadow/canary body)")
+        check_guard_composition(policy, sharing=sharing,
+                                resilience=resilience)
+        refuse_policy_layers("FleetTuner", cell_size, sharing=sharing,
+                             resilience=resilience, supervisor=supervisor,
+                             chaos=chaos)
         device = resolve_device(device)
         if device.type != agent.device.type or None not in (
                 device.index, agent.device.index) and \
@@ -412,6 +426,11 @@ class FleetTuner:
         self.devices = list(devices) if devices else None
         self.chunk = chunk
         self.overlap = overlap  # chunks on copy streams (scan engine)
+        self.policy = policy
+        self._guard = None  # stacked GuardState, persists across run() calls
+        self.guard_events = np.zeros((len(envs), 0), np.uint8)
+        self.shadow_objectives = np.zeros((len(envs), 0), np.float32)
+        self._guard_counters: Optional[list] = None  # one dict per session
         self.envs = list(envs)
         self.scalarizers = list(scalarizers)
         self.agent = agent
@@ -477,11 +496,12 @@ class FleetTuner:
         chunks on copy streams beside the compute stream, bitwise the
         serial schedule.
 
-        ``device`` is where the fleet runs: ``cuda`` unless given, so
-        without a card the caller must pass ``"cpu"``. ``replay_dtype``
-        other than float32 (ROADMAP A7b), ``policy``, ``sharing``,
-        ``resilience``, ``supervisor``, ``chaos`` (A10) and more than one
-        device (A11d) raise ``NotImplementedError``."""
+        ``policy`` guards every session (``FleetTuner``). ``device`` is
+        where the fleet runs: ``cuda`` unless given, so without a card the
+        caller must pass ``"cpu"``. ``replay_dtype`` other than float32
+        (ROADMAP A7b), ``sharing``, ``resilience``, ``supervisor``,
+        ``chaos`` (A10b) and more than one device (A11d) raise
+        ``NotImplementedError``."""
         device = resolve_device(device)
         if env_factory is not None and env_cls is not None:
             raise ValueError(
@@ -579,7 +599,7 @@ class FleetTuner:
         from repro_torch.core.episode import precompile_fleet_episode
         return precompile_fleet_episode(
             self.envs[0], self.agent, steps, sessions=len(self.envs),
-            chunk=self.chunk, devices=self.devices)
+            chunk=self.chunk, devices=self.devices, policy=self.policy)
 
     # ------------------------------------------------------------------
 
@@ -623,10 +643,33 @@ class FleetTuner:
         from repro_torch.core.episode import run_fleet_episode_scan
         start = len(self.histories[0])
         t0 = time.perf_counter()
-        trace = run_fleet_episode_scan(
-            self.envs, self.agent, self.scalarizers, self._cur_metrics,
-            steps, learn=True, devices=self.devices, chunk=self.chunk,
-            overlap=self.overlap)
+        if self.policy is None:
+            trace = run_fleet_episode_scan(
+                self.envs, self.agent, self.scalarizers, self._cur_metrics,
+                steps, learn=True, devices=self.devices, chunk=self.chunk,
+                overlap=self.overlap)
+        else:
+            from repro_torch.core.guardrails import empty_counters, \
+                guardrail_counters, init_fleet_guard_state, merge_counters
+            if self._guard is None:
+                self._guard = init_fleet_guard_state(
+                    self.envs[0].param_space, self._cur_configs,
+                    [sc.objective(m) for sc, m in
+                     zip(self.scalarizers, self._cur_metrics)])
+            trace, self._guard = run_fleet_episode_scan(
+                self.envs, self.agent, self.scalarizers, self._cur_metrics,
+                steps, learn=True, devices=self.devices, chunk=self.chunk,
+                overlap=self.overlap, policy=self.policy, guard=self._guard)
+            self.guard_events = np.concatenate(
+                [self.guard_events, trace.guard_events], axis=1)
+            self.shadow_objectives = np.concatenate(
+                [self.shadow_objectives, trace.shadow_objectives], axis=1)
+            self._guard_counters = [
+                merge_counters(c, guardrail_counters(trace.guard_events[i],
+                                                     trace.restarts[i]))
+                for i, c in enumerate(self._guard_counters
+                                      or [empty_counters()
+                                          for _ in self.envs])]
         episode = time.perf_counter() - t0
         per_step = episode / max(1, steps)
         t0 = time.perf_counter()
@@ -704,13 +747,21 @@ class FleetTuner:
         self.timings.update(spent)
 
     def guardrail_stats(self, i: int) -> Optional[dict]:
-        """Session ``i``'s guardrail record: None, the guardrails being
-        ROADMAP item A10."""
-        return None
+        """Session ``i``'s exported guardrail record (None when off)."""
+        if self.policy is None:
+            return None
+        from repro_torch.core.guardrails import empty_counters, guard_row, \
+            guardrail_stats
+        guard_i = (guard_row(self._guard, i) if self._guard is not None
+                   else None)
+        counters = (self._guard_counters[i] if self._guard_counters
+                    else empty_counters())
+        return guardrail_stats(self.policy, guard_i, counters,
+                               space=self.envs[i].param_space)
 
     def health_stats(self, i: int) -> Optional[dict]:
         """Session ``i``'s health record: None, resilience being ROADMAP
-        item A10."""
+        item A10b."""
         return None
 
     def _finish(self, t_wall: float) -> FleetResult:
@@ -749,6 +800,7 @@ class FleetTuner:
                 simulated_restart_seconds=float(
                     self.simulated_restart_seconds[i]),
                 wall_seconds=wall,
+                guardrail_stats=self.guardrail_stats(i),
             ))
         return FleetResult(results=results, labels=list(self.labels),
                            wall_seconds=wall)

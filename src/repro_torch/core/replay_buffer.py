@@ -113,7 +113,7 @@ class BatchedReplayBuffer:
     The reference's bfloat16 storage (``storage_dtype``) and merged cell
     windows (``groups``) are not ported: the episode kernel keeps its replay
     window in float32 (ROADMAP A7b), and shared replay belongs to the
-    policy layers (ROADMAP A10). Both raise ``NotImplementedError``.
+    policy layers (ROADMAP A10b). Both raise ``NotImplementedError``.
     """
 
     def __init__(self, num_sessions: int, capacity: int, state_dim: int,
@@ -128,7 +128,7 @@ class BatchedReplayBuffer:
         if groups is not None:
             raise NotImplementedError(
                 "merged cell windows (groups=...) belong to shared replay, "
-                "ROADMAP item A10, not yet in repro_torch")
+                "ROADMAP item A10b, not yet in repro_torch")
         if not _is_float32(storage_dtype):
             raise NotImplementedError(
                 f"replay storage in {storage_dtype} is ROADMAP item A7b: the "

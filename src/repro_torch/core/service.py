@@ -37,9 +37,14 @@ differing policy configurations). Each env has its own key chain, so the
 order of sessions does not change which draws an evaluation consumes. The
 learners of a boundary's joiners are drawn there too, by ``fleet_init``
 (elementwise in each session's key). No chunk is padded to the lease
-width: a launch takes any number of sessions. The policy layers (``policy``, ``sharing``,
-``cell_size > 1``, ``resilience``, ``supervisor``, ``chaos``) are ROADMAP
-item A10 and raise ``NotImplementedError``.
+width: a launch takes any number of sessions.
+
+``policy`` (a ``core.guardrails.DeploymentPolicy``) guards every session:
+a session's ``GuardState`` is initialized when its boundary evaluates its
+default configuration, rides each leased chunk of the guarded per-step
+body, and goes into checkpoints with the policy. The other policy layers
+(``sharing``, ``cell_size > 1``, ``resilience``, ``supervisor``,
+``chaos``) are ROADMAP item A10b and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from repro_torch.core.ddpg import (
 )
 from repro_torch.core.episode import (
     BufferState,
+    check_guard_composition,
     _host_copy,
     _stacked,
     check_fleet_envs,
@@ -116,6 +122,9 @@ class _Session:
     history: list
     restart_seconds: float
     joined_at: float
+    # guardrails (service-wide policy; None when guardrails are off)
+    guard: object = None        # core.guardrails.GuardState, numpy leaves
+    guard_counters: Optional[dict] = None
 
 
 class FleetService:
@@ -141,6 +150,12 @@ class FleetService:
     without a card the caller must pass ``"cpu"``. ``env_factory(workload,
     seed)`` defaults to ``env_cls(workload, seed=seed).to_model_env(
     device=device)`` with ``env_cls=LustreSimEnv``.
+
+    ``policy`` (``core.guardrails.DeploymentPolicy``) guards every session;
+    ``guardrail_stats(sid)``, ``last_stats["guardrails"]`` (the advance's
+    counters summed over its sessions) and each departed session's
+    ``TuningResult.guardrail_stats`` report it. ``policy=None`` is bitwise
+    the unguarded service.
     """
 
     def __init__(self, *, chunk: int, env_factory=None, env_cls=None,
@@ -151,9 +166,11 @@ class FleetService:
                  policy=None, sharing=None, cell_size: int = 1,
                  resilience=None, supervisor=None, chaos=None,
                  device=None):
-        refuse_policy_layers("FleetService", cell_size, policy=policy,
-                             sharing=sharing, resilience=resilience,
-                             supervisor=supervisor, chaos=chaos)
+        check_guard_composition(policy, sharing=sharing,
+                                resilience=resilience)
+        refuse_policy_layers("FleetService", cell_size, sharing=sharing,
+                             resilience=resilience, supervisor=supervisor,
+                             chaos=chaos)
         if chunk <= 0:
             raise ValueError(f"chunk must be positive, got {chunk}")
         if env_factory is not None and env_cls is not None:
@@ -175,6 +192,7 @@ class FleetService:
         self.overlap = overlap
         self.checkpoint_dir = checkpoint_dir
         self.keep = keep
+        self.policy = policy
         self.total_steps = 0
         self._slots: list = []          # slot index -> sid or None (leases)
         self._sessions: dict = {}       # sid -> _Session (leased only)
@@ -222,16 +240,24 @@ class FleetService:
         """slot index -> sid (or None): the service's chunk-row leases."""
         return list(self._slots)
 
+    def _session_guardrail_stats(self, sess: _Session) -> Optional[dict]:
+        if self.policy is None:
+            return None
+        from repro_torch.core.guardrails import empty_counters, \
+            guardrail_stats
+        return guardrail_stats(self.policy, sess.guard,
+                               sess.guard_counters or empty_counters(),
+                               space=sess.env.param_space)
+
     def guardrail_stats(self, sid: int) -> Optional[dict]:
-        """An active session's guardrail record: None, the guardrails being
-        ROADMAP item A10."""
+        """An ACTIVE session's guardrail record (None when off)."""
         if sid not in self._sessions:
             raise KeyError(f"session {sid} is not active")
-        return None
+        return self._session_guardrail_stats(self._sessions[sid])
 
     def health_stats(self, sid: int) -> Optional[dict]:
         """An active session's health record: None, resilience being
-        ROADMAP item A10."""
+        ROADMAP item A10b."""
         if sid not in self._sessions:
             raise KeyError(f"session {sid} is not active")
         return None
@@ -277,7 +303,8 @@ class FleetService:
 
     def _evaluate_defaults(self, sessions: Sequence[_Session]) -> None:
         """The default configurations of ``sessions``, evaluated in one
-        ``evaluate_fleet``."""
+        ``evaluate_fleet``; with a policy, each session's guard starts on
+        its default configuration and objective."""
         metrics = evaluate_fleet([s.env for s in sessions],
                                  [s.default_config for s in sessions],
                                  self.eval_runs)
@@ -286,6 +313,11 @@ class FleetService:
             s.cur_metrics = dict(m)
             s.best_metrics = dict(m)
             s.best_objective = s.scalarizer.objective(m)
+            if self.policy is not None:
+                from repro_torch.core.guardrails import init_guard_state
+                s.guard = init_guard_state(s.env.param_space,
+                                           s.default_config,
+                                           s.best_objective)
 
     # -- boundary: apply the request queue -----------------------------------
 
@@ -359,7 +391,8 @@ class FleetService:
                 default_metrics=dict(s.default_metrics),
                 history=list(s.history),
                 simulated_restart_seconds=float(s.restart_seconds),
-                wall_seconds=now - s.joined_at)
+                wall_seconds=now - s.joined_at,
+                guardrail_stats=self._session_guardrail_stats(s))
 
     # -- the serving loop ----------------------------------------------------
 
@@ -373,8 +406,9 @@ class FleetService:
         sessions ran: ``chunk``, ``num_chunks``, ``overlap``,
         ``padded_sessions`` (0), ``peak_device_bytes``,
         ``session_steps_per_sec``, ``launch_device_seconds`` (CUDA events on
-        the card; empty on the CPU) and ``staging`` (``stream_chunks``'s
-        measurements)."""
+        the card; empty on the CPU), ``staging`` (``stream_chunks``'s
+        measurements) and, with a policy, ``guardrails`` (this advance's
+        counters summed over its sessions)."""
         boundary = self._apply_requests()
         order = [sid for sid in self._slots if sid is not None]
         self.last_stats = {"boundary_seconds": boundary,
@@ -412,14 +446,32 @@ class FleetService:
             *(_host_copy(np.array([s.buf[key] for s in sessions], np.int32),
                          pin) for key in ("next", "size")))
         learn_keys = _stacked([s.learn_key for s in sessions], pin)
+        guard = None
+        if self.policy is not None:
+            from repro_torch.core.guardrails import empty_counters, \
+                guard_row, guard_to_numpy, guard_to_torch, \
+                guardrail_counters, merge_counters, stack_guards
+            guard = guard_to_torch(stack_guards([s.guard for s in sessions]),
+                                   pin=pin)
+            round_counters = empty_counters()
         trace, stats = stream_fleet_episode(
             envs, [s.scalarizer for s in sessions],
             [s.cur_metrics for s in sessions], exploration, ddpg, buffer,
             learn_keys, cfg=self.cfg, steps=steps, chunk=self.chunk,
-            overlap=self.overlap, device=self.device)
+            overlap=self.overlap, device=self.device, policy=self.policy,
+            guard=guard)
         wall = time.perf_counter() - t0
         per_step = wall / max(1, steps)
+        if guard is not None:
+            guard = guard_to_numpy(guard)
         for j, s in enumerate(sessions):
+            if guard is not None:
+                s.guard = guard_row(guard, j)
+                delta = guardrail_counters(trace.guard_events[j],
+                                           trace.restarts[j])
+                s.guard_counters = merge_counters(
+                    s.guard_counters or empty_counters(), delta)
+                round_counters = merge_counters(round_counters, delta)
             s.ddpg = DDPGState(*(x[j] for x in ddpg))
             for key, x in zip(_WINDOW, buffer):
                 s.buf[key] = x[j]
@@ -446,6 +498,8 @@ class FleetService:
             session_steps_per_sec=len(sessions) * steps / max(wall, 1e-9),
             launch_device_seconds=stats["launch_device_seconds"],
             staging=stats["staging"])
+        if guard is not None:
+            self.last_stats["guardrails"] = round_counters
 
     # -- checkpoint / restore ------------------------------------------------
 
@@ -455,13 +509,18 @@ class FleetService:
         window and key are copies: between advances they are rows of the
         last advance's stacked tensors, whose whole storage ``torch.save``
         would write."""
-        return {"ddpg": DDPGState(*(x.clone() for x in s.ddpg)),
+        tree = {"ddpg": DDPGState(*(x.clone() for x in s.ddpg)),
                 "buffer": {key: s.buf[key].clone() for key in _WINDOW},
                 "env_params": s.env.params.vector(),
                 "env_state": s.env.model_state,
                 "learn_key": s.learn_key.clone(),
                 "noise_x": torch.from_numpy(s.noise.state_dict()["x"]),
                 "warmup_plan": torch.from_numpy(s.warmup_plan)}
+        if s.guard is not None:
+            for name in ("live_action", "fallback_action"):
+                tree[f"guard_{name}"] = torch.from_numpy(
+                    np.array(getattr(s.guard, name), np.float32))
+        return tree
 
     def checkpoint(self, directory: Optional[str] = None) -> str:
         """Write the whole service state through ``checkpoint/store.py``
@@ -484,6 +543,8 @@ class FleetService:
             "eval_runs": self.eval_runs, "overlap": bool(self.overlap),
             "keep": self.keep, "total_steps": self.total_steps,
             "next_sid": self._next_sid,
+            "policy": (dict(self.policy._asdict())
+                       if self.policy is not None else None),
             "slots": [(-1 if s is None else s) for s in self._slots],
             "cfg": ({**self.cfg._asdict(), "hidden": list(self.cfg.hidden)}
                     if self.cfg is not None else None),
@@ -508,6 +569,15 @@ class FleetService:
                 "last_config": s.env._last_config,
                 "history": [dataclasses.asdict(r) for r in s.history],
             }
+            if s.guard is not None:
+                extra["sessions"][str(sid)]["guard"] = {
+                    "fallback_obj": float(s.guard.fallback_obj),
+                    "budget_spent": float(s.guard.budget_spent),
+                    "watch_left": int(s.guard.watch_left),
+                    "promotions": int(s.guard.promotions),
+                    "rollbacks": int(s.guard.rollbacks),
+                    "counters": dict(s.guard_counters or {}),
+                }
         return save_checkpoint(directory, self.total_steps, tree,
                                keep=self.keep, extra=extra)
 
@@ -527,7 +597,9 @@ class FleetService:
 
         ``fallback=True`` survives a corrupted newest checkpoint by walking
         the keep-k history to the newest verifiable step (the restored
-        service's ``total_steps`` says how far back it reached)."""
+        service's ``total_steps`` says how far back it reached). A guarded
+        service comes back with its policy and every session's guard and
+        counters."""
         step, flat, extra = restore_checkpoint(directory, step,
                                                fallback=fallback)
         cfg = None
@@ -535,13 +607,18 @@ class FleetService:
             cfg_d = dict(extra["cfg"])
             cfg_d["hidden"] = tuple(cfg_d["hidden"])
             cfg = DDPGConfig(**cfg_d)
+        policy = None
+        if extra.get("policy") is not None:
+            from repro_torch.core.guardrails import DeploymentPolicy, \
+                GuardState, init_guard_state
+            policy = DeploymentPolicy(**extra["policy"])
         svc = cls(chunk=extra["chunk"], env_factory=env_factory,
                   env_cls=env_cls, ddpg_config=cfg,
                   buffer_capacity=extra["buffer_capacity"],
                   warmup_steps=extra["warmup_steps"],
                   eval_runs=extra["eval_runs"], overlap=extra["overlap"],
                   checkpoint_dir=directory, keep=extra["keep"],
-                  device=device)
+                  policy=policy, device=device)
         svc.total_steps = extra["total_steps"]
         svc._next_sid = extra["next_sid"]
         svc._slots = [None if s < 0 else int(s) for s in extra["slots"]]
@@ -557,6 +634,9 @@ class FleetService:
             s.ddpg = DDPGState(torch.zeros(layout.floats),
                                torch.zeros(2, dtype=torch.int32),
                                torch.zeros((), dtype=torch.int32))
+            if policy is not None:  # the template's guard leaves
+                s.guard = init_guard_state(s.env.param_space,
+                                           s.default_config, 0.0)
             restored = restore_into(svc._tree(s), leaves.get(sid_s, {}))
             if not torch.equal(restored["env_params"],
                                s.env.params.vector()):
@@ -587,6 +667,17 @@ class FleetService:
                 (sc, sec) for sc, sec in meta["restart_events"]]
             s.env._last_config = dict(meta["last_config"])
             s.history = [StepRecord(**r) for r in meta["history"]]
+            if policy is not None:
+                gm = meta["guard"]
+                s.guard = GuardState(
+                    live_action=restored["guard_live_action"].numpy(),
+                    fallback_action=restored["guard_fallback_action"].numpy(),
+                    fallback_obj=np.float32(gm["fallback_obj"]),
+                    budget_spent=np.float32(gm["budget_spent"]),
+                    watch_left=np.int32(gm["watch_left"]),
+                    promotions=np.int32(gm["promotions"]),
+                    rollbacks=np.int32(gm["rollbacks"]))
+                s.guard_counters = dict(gm["counters"])
             svc._sessions[sid] = s
         return svc
 

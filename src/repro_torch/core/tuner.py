@@ -16,9 +16,12 @@ reward = proportional scalarized performance change -> store -> learn.
 ``TuningEnvironment``. ``engine="scan"`` needs a ``ModelEnv`` and runs each
 ``run()`` call as one episode (``core.episode.run_episode_scan``): on the
 card ONE launch of the CUDA kernel ``kernels/csrc/episode_learn.cu``, on
-the CPU its plain PyTorch version. The layers the reference runs inside the
-episode (deployment guardrails, resilience, observation scopes) are ROADMAP
-item A10.
+the CPU its plain PyTorch version. ``policy`` (a
+``core.guardrails.DeploymentPolicy``) turns on the deployment guardrails:
+each ``run()`` then runs the guarded per-step body
+(``core.episode.stepwise_episode``), one launch of the CUDA learner
+``kernels/csrc/ddpg_learn.cu`` a step. The other layers the reference runs
+inside the episode (resilience, observation scopes) are ROADMAP item A10b.
 
 The final recommendation is the best configuration *seen* during tuning
 (§III-E: 'it recommends the best it has seen so far'), evaluated with
@@ -35,6 +38,7 @@ import numpy as np
 
 from repro_torch.core.agent import MagpieAgent
 from repro_torch.core.ddpg import DDPGConfig
+from repro_torch.core.episode import check_guard_composition
 from repro_torch.core.scalarization import Scalarizer, normalize_state
 
 
@@ -95,6 +99,10 @@ class TuningResult:
     history: list
     simulated_restart_seconds: float
     wall_seconds: float
+    #: guarded sessions only (core.guardrails): the policy, per-session
+    #: promotion/rollback counters and restart-budget accounting; None when
+    #: guardrails are off
+    guardrail_stats: Optional[dict] = None
 
     def gain(self, metric: str) -> float:
         """Proportional raw-metric gain of best vs default (paper's reported %)."""
@@ -114,25 +122,43 @@ class Tuner:
 
         ``engine``: "host" (dict loop, any environment) or "scan" (one
         episode call per ``run()``; needs a ``ModelEnv`` on the agent's
-        device). ``policy``, ``observation_scopes`` and ``resilience``
-        belong to the reference's guarded, masked and self-healing episode
-        bodies and raise ``NotImplementedError`` here (ROADMAP A10)."""
+        device).
+
+        ``policy`` (``core.guardrails.DeploymentPolicy``) turns on the
+        shadow/canary deployment guardrails: proposals are scored in shadow
+        inside the episode, promoted only past the min-gain/restart-budget
+        gate and rolled back on regression. Scan engine only; the guard
+        persists across progressive ``run()`` calls. ``policy=None`` runs
+        the episode kernel, bitwise the unguarded tuner.
+        ``observation_scopes`` and ``resilience`` belong to the reference's
+        masked and self-healing episode bodies and raise
+        ``NotImplementedError`` here (ROADMAP A10b)."""
         if engine not in ("host", "scan"):
             raise ValueError(f"unknown engine {engine!r}; use 'host' or 'scan'")
         if engine == "scan" and getattr(env, "model", None) is None:
             raise ValueError(
                 "engine='scan' needs a pure-model environment (ModelEnv); "
                 "real-DFS/external environments must use engine='host'")
-        for name, value in (("policy", policy),
-                            ("observation_scopes", observation_scopes),
+        if policy is not None and engine != "scan":
+            raise ValueError(
+                "DeploymentPolicy guardrails run inside the episode; use "
+                "engine='scan' (the host loop has no shadow/canary body)")
+        check_guard_composition(policy, observation_scopes=observation_scopes,
+                                resilience=resilience)
+        for name, value in (("observation_scopes", observation_scopes),
                             ("resilience", resilience)):
             if value is not None:
                 raise NotImplementedError(
-                    f"Tuner({name}) runs inside the reference's guarded, "
-                    f"masked or resilient episode body, ROADMAP item A10, "
-                    f"not yet in repro_torch")
+                    f"Tuner({name}) runs inside the reference's masked or "
+                    f"resilient episode body, ROADMAP item A10b, not yet in "
+                    f"repro_torch")
         self.env = env
         self.engine = engine
+        self.policy = policy
+        self._guard = None  # GuardState, persists across progressive runs
+        self.guard_events = np.zeros((0,), np.uint8)
+        self.shadow_objectives = np.zeros((0,), np.float32)
+        self._guard_counters: Optional[dict] = None
         self.scalarizer = scalarizer
         self.agent = agent or MagpieAgent(DDPGConfig.for_env(env), seed=seed,
                                           device=device)
@@ -214,8 +240,26 @@ class Tuner:
         from repro_torch.core.episode import run_episode_scan
         start = len(self.history)
         t0 = time.perf_counter()
-        trace = run_episode_scan(self.env, self.agent, self.scalarizer,
-                                 self._cur_metrics, steps, learn=learn)
+        if self.policy is not None:
+            from repro_torch.core.guardrails import empty_counters, \
+                guardrail_counters, init_guard_state, merge_counters
+            if self._guard is None:
+                self._guard = init_guard_state(
+                    self.env.param_space, self._cur_config,
+                    self.scalarizer.objective(self._cur_metrics))
+            trace, self._guard = run_episode_scan(
+                self.env, self.agent, self.scalarizer, self._cur_metrics,
+                steps, learn=learn, policy=self.policy, guard=self._guard)
+            self.guard_events = np.concatenate(
+                [self.guard_events, trace.guard_events])
+            self.shadow_objectives = np.concatenate(
+                [self.shadow_objectives, trace.shadow_objectives])
+            self._guard_counters = merge_counters(
+                self._guard_counters or empty_counters(),
+                guardrail_counters(trace.guard_events, trace.restarts))
+        else:
+            trace = run_episode_scan(self.env, self.agent, self.scalarizer,
+                                     self._cur_metrics, steps, learn=learn)
         per_step = (time.perf_counter() - t0) / max(1, steps)
 
         configs = self.env.param_space.configs_from_indices(trace.action_idx)
@@ -241,6 +285,18 @@ class Tuner:
             self._cur_metrics = metrics
         self.env._last_config = dict(self._cur_config)
 
+    def guardrail_stats(self) -> Optional[dict]:
+        """Exported guardrail record (None when guardrails are off): the
+        policy, cumulative promotion/rollback/rejection counters, restart
+        budget spent/remaining and the current live config."""
+        if self.policy is None:
+            return None
+        from repro_torch.core.guardrails import empty_counters, \
+            guardrail_stats
+        return guardrail_stats(self.policy, self._guard,
+                               self._guard_counters or empty_counters(),
+                               space=self.env.param_space)
+
     def _finish(self, t_wall: float) -> TuningResult:
         """§III-E final recommendation + result assembly (shared by engines)."""
         policy_action = self.agent.act(self._state(self._cur_metrics), explore=False)
@@ -261,4 +317,5 @@ class Tuner:
             history=list(self.history),
             simulated_restart_seconds=self.simulated_restart_seconds,
             wall_seconds=time.perf_counter() - t_wall,
+            guardrail_stats=self.guardrail_stats(),
         )

@@ -1,4 +1,14 @@
-from repro_torch.envs.base import TuningEnvironment
+from repro_torch.envs.base import EnvModel, ModelEnv, TuningEnvironment
+from repro_torch.envs.faults import (
+    FAULT_MODES,
+    FaultInjectedModel,
+    FaultSpec,
+    FaultyEnvState,
+    latency_spike,
+    metric_dropout,
+    nan_poison,
+    throughput_collapse,
+)
 from repro_torch.envs.metrics import (
     LUSTRE_STATE_METRICS,
     MetricsCollector,
@@ -16,7 +26,10 @@ from repro_torch.envs.lustre_sim import (
 )
 
 __all__ = [
-    "TuningEnvironment", "MetricsCollector", "lustre_metric_specs",
+    "TuningEnvironment", "EnvModel", "ModelEnv", "FAULT_MODES",
+    "FaultInjectedModel", "FaultSpec", "FaultyEnvState", "latency_spike",
+    "metric_dropout", "nan_poison", "throughput_collapse",
+    "MetricsCollector", "lustre_metric_specs",
     "LUSTRE_STATE_METRICS", "couple_client_knobs", "WORKLOADS", "Workload",
     "LustreSimEnv", "LustreSimV2", "batch_mean_performance",
     "paper_param_space", "extended_param_space", "magpie8_param_space",

@@ -105,14 +105,22 @@ class EnvModel(abc.ABC):
     def init_state(self, key: torch.Tensor) -> Any:
         return self.init_fn(self.params, key)
 
+    def key_of(self, state) -> torch.Tensor:
+        """The threefry key the state carries (``step_draws`` walks it)."""
+        return state.key
+
+    def with_key(self, state, key: torch.Tensor):
+        """``state`` carrying ``key`` in place of its own."""
+        return state._replace(key=key)
+
     def step(self, state, unit_action: torch.Tensor, eval_run: bool = False,
              params=None) -> tuple:
         """One transition: advance the key chain, then the step's math.
         ``params`` defaults to ``self.params`` (pass a copy on another
         device to step there)."""
-        key, draws = self.step_draws(state.key)
+        key, draws = self.step_draws(self.key_of(state))
         return self.step_fn(self.params if params is None else params,
-                            state._replace(key=key), unit_action, draws,
+                            self.with_key(state, key), unit_action, draws,
                             eval_run)
 
     @property

@@ -39,7 +39,7 @@ from repro_torch.core.action_mapping import coord_maps
 from repro_torch.core.ddpg import DDPGConfig, actor_apply, state_layout, \
     unflatten
 from repro_torch.core.episode import EpisodeCarry, EpisodeTrace, \
-    _encode_restart
+    _encode_restart, normalized_objective, relative_gain
 from repro_torch.envs.lustre_model import LustreParams, LustreSimModel, \
     draws_per_step, episode_draws
 from repro_torch.envs.lustre_sim import NET_CAP
@@ -465,13 +465,9 @@ def episode_learn_plain(op: EpisodeOperands, *,
                                for j in range(cfg.action_dim)], dim=-1)
             env_state, metrics, restart = model.step_fn(
                 params, env_state, action, env_draws[:, t], False)
-            norm = torch.where(
-                op.span > 0, torch.clamp((metrics - op.lo) / op.span, 0.0,
-                                         1.0), torch.zeros_like(metrics))
-            obj = torch.zeros_like(objective)
-            for j in range(cfg.state_dim):
-                obj = obj + op.w_vec[:, j] * norm[:, j]
-            reward = (obj - objective) / torch.clamp(objective, min=1e-6)
+            norm, obj = normalized_objective(metrics, op.lo, op.span,
+                                             op.w_vec)
+            reward = relative_gain(obj, objective)
             if spec.learn:  # FIFO write, store before learn
                 i = nxt.long()
                 bs[rows, i] = state_vec

@@ -21,6 +21,7 @@ from repro_torch.core.action_mapping import ParamSpace, ParamSpec
 from repro_torch.core.ddpg import DDPGConfig
 from repro_torch.core.episode import EpisodeCarry, _encode_restart, \
     decode_restarts, run_episode_scan
+from repro_torch.core.guardrails import DeploymentPolicy
 from repro_torch.envs import LustreSimEnv, LustreSimV2
 from repro_torch.kernels import episode_learn as el
 from repro_torch.kernels import ops
@@ -175,9 +176,12 @@ def test_wrapper_refusals():
     with pytest.raises(ValueError, match="w_vec"):
         el.episode_learn_plain(bad, spec=pspec)
     env = LustreSimEnv("seq_write").to_model_env(device="cpu")
-    for kwargs in ({"policy": object()}, {"resilience": object()},
-                   {"obs_mask": (1.0,) * 12}):
-        with pytest.raises(NotImplementedError, match="A10"):
+    for kwargs, error, match in (
+            ({"policy": DeploymentPolicy(), "resilience": object()},
+             ValueError, "compose"),
+            ({"resilience": object()}, NotImplementedError, "A10b"),
+            ({"obs_mask": (1.0,) * 12}, NotImplementedError, "A10b")):
+        with pytest.raises(error, match=match):
             run_episode_scan(env, None, None, {}, 1, **kwargs)
 
 

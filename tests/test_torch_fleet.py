@@ -37,6 +37,7 @@ from repro_torch import random as jrandom
 from repro_torch.core import (
     BatchedReplayBuffer,
     DDPGConfig,
+    DeploymentPolicy,
     FleetAgent,
     FleetTuner,
     MagpieAgent,
@@ -316,7 +317,7 @@ def _small_grid(**kw):
 
 
 @pytest.mark.parametrize("build,item", [
-    (lambda: _small_grid(engine="scan", policy=object()), "A10"),
+    (lambda: _small_grid(engine="host", policy=DeploymentPolicy()), "scan"),
     (lambda: _small_grid(engine="scan", sharing=object()), "A10"),
     (lambda: _small_grid(engine="scan", resilience=object()), "A10"),
     (lambda: _small_grid(engine="scan", supervisor=object()), "A10"),
@@ -332,14 +333,22 @@ def _small_grid(**kw):
     (lambda: FleetTuner(*_parts(), cell_size=2, device="cpu"), "A10"),
     (lambda: run_fleet_episode_scan(*_scan_parts(), obs_mask=object()),
      "A10"),
-    (lambda: run_fleet_episode_scan(*_scan_parts(), guard=object()), "A10"),
+    (lambda: run_fleet_episode_scan(*_scan_parts(),
+                                    policy=DeploymentPolicy(),
+                                    guard=object(), sharing=object()),
+     "compose"),
     (lambda: run_fleet_episode_scan(*_scan_parts(), health=object()),
      "A10"),
 ], ids=["policy", "sharing", "resilience", "supervisor", "chaos", "bf16",
         "devices", "replay_groups", "groups", "storage_dtype", "cell_size",
         "obs_mask", "guard", "health"])
 def test_refusals_name_their_roadmap_item(build, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Layers not ported name their ROADMAP item; a ``DeploymentPolicy`` on
+    the host engine, or beside experience sharing, gets the reference's
+    ``ValueError``."""
+    error = ValueError if item in ("scan", "compose") else \
+        NotImplementedError
+    with pytest.raises(error, match=item):
         build()
 
 

@@ -116,6 +116,15 @@ def test_the_service_slice_is_covered():
         assert name in mods, name
 
 
+def test_the_guardrails_slice_is_covered():
+    """The import checks below walk the deployment guardrails and the fault
+    injection too."""
+    mods = _port_modules()
+    for name in ("repro_torch.core.guardrails", "repro_torch.envs.faults",
+                 "repro_torch.core.episode", "repro_torch.core.tuner"):
+        assert name in mods, name
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())

@@ -35,7 +35,8 @@ from repro.core import DDPGConfig as JDDPGConfig
 from repro.core import FleetService as JFleetService
 from repro.envs import LustreSimEnv as JLustreSimEnv
 from repro.envs import LustreSimV2 as JLustreSimV2
-from repro_torch.core import DDPGConfig, FleetService, FleetTuner
+from repro_torch.core import DDPGConfig, DeploymentPolicy, FleetService, \
+    FleetTuner
 from repro_torch.envs import LustreSimEnv, LustreSimV2
 
 W = {"throughput": 1.0}
@@ -293,12 +294,19 @@ def test_fallback_restore_past_a_corrupted_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("layer", [
-    {"policy": object()}, {"sharing": object()}, {"cell_size": 2},
+    {"policy": DeploymentPolicy(), "resilience": object()},
+    {"sharing": object()}, {"cell_size": 2},
     {"resilience": object()}, {"supervisor": object()},
     {"chaos": object()}], ids=["policy", "sharing", "cell_size",
                                "resilience", "supervisor", "chaos"])
 def test_policy_layers_are_refused(layer):
-    with pytest.raises(NotImplementedError, match="ROADMAP item A10"):
+    """The layers not ported name ROADMAP item A10b; a ``DeploymentPolicy``
+    beside resilience gets the reference's ``ValueError``."""
+    if "policy" in layer:
+        with pytest.raises(ValueError, match="compose"):
+            _service(**layer)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP item A10b"):
         _service(**layer)
 
 

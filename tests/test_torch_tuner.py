@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Scalarizer, Tuner
+from repro_torch.core import DeploymentPolicy, Scalarizer, Tuner
 from repro_torch.envs import LustreSimEnv, LustreSimV2
 from repro_torch.kernels.ddpg_learn import ddpg_learn
 from repro_torch.kernels.episode_learn import episode_learn
@@ -59,16 +59,18 @@ def test_agent_state_dict_round_trip():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"engine": "scan"}, "ModelEnv"), ({"policy": object()}, "A10"),
+    ({"engine": "scan"}, "ModelEnv"), ({"policy": DeploymentPolicy()}, "scan"),
     ({"resilience": object()}, "A10"),
     ({"observation_scopes": ("OSC",)}, "A10")])
 def test_scan_engine_layers_are_not_ported_yet(kwargs, item):
-    """The scan engine refuses a non-``ModelEnv`` env with the reference's
-    ``ValueError``; the layers inside the reference's episode body (ROADMAP
-    A10) are not ported."""
+    """The scan engine refuses a non-``ModelEnv`` env, and the host engine a
+    ``DeploymentPolicy``, with the reference's ``ValueError``s; the other
+    layers inside the reference's episode body (ROADMAP A10b) are not
+    ported."""
     env = LustreSimEnv("seq_write")
     scal = Scalarizer(weights={"throughput": 1.0}, specs=env.metric_specs)
-    error = ValueError if item == "ModelEnv" else NotImplementedError
+    error = ValueError if item in ("ModelEnv", "scan") else \
+        NotImplementedError
     with pytest.raises(error, match=item):
         Tuner(env, scal, device="cpu", **kwargs)
 
