@@ -63,7 +63,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
   7. fleet        the fleet runtime, on the 2-D and the 8-D space:
                   ``FleetTuner.from_grid`` over 4 workloads x 256 seeds
                   (1,024 sessions), 30 steps, on the scan engine under four
-                  schedules: monolithic (``episode_learn`` launched
+                  schedules on 2-D (two on 8-D, ``FLEET_SCHEDULES_8D``):
+                  monolithic (``episode_learn`` launched
                   exactly once), ``chunk=256`` with the copy streams (4
                   launches), ``chunk=256`` serial, and ``chunk=300`` (300 +
                   300 + 300 + 124, nothing padded): every trace leaf, the
@@ -74,7 +75,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   to the single ``Tuner`` on both engines (configs,
                   objectives, restart seconds, all 30 steps); the host
                   engine on the same 1,024 sessions for
-                  ``FLEET_HOST_STEPS`` = 10 steps (``ddpg_learn`` launched
+                  ``FLEET_HOST_STEPS`` = 5 steps on 2-D and
+                  ``FLEET_HOST_STEPS_8D`` = 3 on 8-D (``ddpg_learn`` launched
                   exactly once per step, finite metrics, a positive median
                   throughput gain), with the fleet act held
                   independent of the fleet's width (and the rows a batched
@@ -93,7 +95,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   session's history and ``TuningResult`` held bitwise equal
                   to ``FleetTuner.from_grid(..., engine="scan",
                   chunk=256).run(30)``; (b) a quiet service of the 1,024
-                  running 3 x ``advance(10)`` and a churn service of the
+                  running 3 x ``advance(5)`` (``SERVICE_ROUND_STEPS``) and
+                  a churn service of the
                   same 1,024 where at every boundary 64 new tenants join
                   and the previous 64 leave (1,088 active, 5 launches, the
                   last ragged): the survivors held bitwise equal to the
@@ -124,7 +127,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   on both spaces, against a CPU replay of 10 steps: events
                   and committed decisions equal through the warmup and
                   after it; (c) the guarded ``FleetTuner`` on the fleet
-                  phase's 1,024 sessions (2-D, ``GUARD_FLEET_STEPS`` = 20
+                  phase's 1,024 sessions (2-D, ``GUARD_FLEET_STEPS`` = 10
                   steps: the phase's time), monolithic and in
                   chunks of 256 on copy streams: trace, events, guard
                   state, learner, window and keys bitwise equal, 8 evenly
@@ -140,11 +143,67 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   rollback_threshold=0.3``: rollbacks inside the window held
                   (at least one over the fleet, the reference test's pin
                   for one session); (e) the guarded ``FleetService`` of the
-                  same 1,024 sessions at lease width 256: ``advance(20)``
+                  same 1,024 sessions at lease width 256: ``advance(10)``
                   bitwise equal to the guarded static fleet, and
-                  ``advance(10)``, a checkpoint, a restore and
-                  ``advance(10)`` bitwise equal to that uninterrupted
-                  ``advance(20)``, guard state and counters included;
+                  ``advance(5)``, a checkpoint, a restore and
+                  ``advance(5)`` bitwise equal to that uninterrupted
+                  ``advance(10)``, guard state and counters included;
+ 7d. resilience   the self-healing layer, 2-D, ``RESILIENCE_STEPS`` = 20
+                  steps, ``ddpg_learn`` launched once per step per chunk and
+                  ``episode_learn`` never: (a) the fleet phase's 1,024
+                  sessions on a ``FaultInjectedModel`` whose throughput
+                  reads NaN at steps 6-7 (``ChaosConfig(nan_metric=
+                  "throughput", nan_start=6, nan_duration=2)``, the
+                  reference example's chaos) under ``ResiliencePolicy()``:
+                  monolithic (its step split by CUDA events), in chunks of
+                  256 under ``ChunkSupervisor(backoff_seconds=0.0)`` with
+                  ``ChaosConfig(fail_chunks=((1, 2),))`` (two retries held)
+                  and 8 fleets of one: every trace leaf (NaN readings
+                  included), learner, window, cursors, keys and health
+                  counter bitwise equal; every session's two poisoned steps
+                  held as resets, no degrade, and the trace's counters
+                  equal to the carried totals; (b) without faults, 16
+                  sessions through ``stepwise_episode`` with the policy
+                  held bitwise equal to the body with no layer, no health
+                  event; (c) 256 sessions poisoned for 3 steps under
+                  ``max_resets=2``: two resets then a degrade in every
+                  session, and the learners bitwise still over the 11
+                  steps after; (d) 64 sessions in chunks of 32, chunk 0
+                  stalled 1 s under a 0.8 s watchdog: a trip, and the bits
+                  of the unstalled run; (e) a ``FleetService`` of the 1,024
+                  at lease width 256 whose chunk 1 never stages
+                  (``fail_chunks=((1, 99),)``): its 256 sessions
+                  quarantined (they leave at the next boundary with no
+                  history), the 768 survivors bitwise equal to (a)'s
+                  static fleet; a resilient service's ``advance(10)``,
+                  checkpoint, restore and ``advance(10)`` bitwise equal to
+                  it too, health records included; (f) ``ddpg_learn`` at
+                  N = 1,024 with NaN and inf planted in two sessions'
+                  learners and a 1e38 reward in a third's minibatches: the
+                  kernel's outputs (learner or losses) and its learner
+                  non-finite in exactly the sessions where the plain
+                  version's are (the losses alone reported: the kernel's
+                  relu maps NaN to 0), and the detector
+                  (``tree_nonfinite_rows``) flagging exactly those three;
+                  reported: what the layer adds to a step of 1,024
+                  sessions (the entry learner's copy, the detector, the
+                  health update), CUDA-event medians;
+ 7e. share        experience sharing on the 8-D space, 1,024 sessions (4
+                  workloads x 256 seeds, ordered by workload) in cells of
+                  ``SHARE_CELL`` = 8 consecutive sessions, 20 steps,
+                  ``SharingConfig(shared_replay=True, avg_every=4,
+                  avg_opt_state=True, observation_scopes=("OSC",))``,
+                  merged windows of 256 slots and a warmup of 1 step (the
+                  reference benchmark's ``benchmarks/shared_experience.py``):
+                  (a) monolithic, every merged write held against a
+                  sequential walk of its members' writes, and in chunks of
+                  256: bitwise equal, ``memory_plan`` equal to the live
+                  tensors; (b) a sharing ``FleetService`` of the same
+                  sessions, lease width 256, bitwise equal to the static
+                  fleet; (c) one member of a cell whose every reading is
+                  NaN, under resilience, against the same member inactive:
+                  its cellmates' window, learners and
+                  traces bitwise equal (32 sessions);
   8. check_flash  the ``flash_attention_fwd`` kernels against their plain
                   version on the same numpy inputs: bfloat16 (the
                   tensor-core kernel) at the two serving shapes (B 4, S 512
@@ -285,8 +344,10 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   ``wkv6_scan`` launch at all (held at 0); finite tokens, and
                   the WKV state left finite in the compute type (bf16);
  19. timing       CUDA-event medians of every kernel and its plain version:
-                  the learners at N = 1 and N = 1024 (the episode's plain
-                  version at N = 1 only, its pre-draw timed apart; at N = 1
+                  the learners at N = 1 and N = 1024 (the plain learner
+                  at N = 1,024 over ``PLAIN_TIMED_RUNS`` = 5 runs; the
+                  episode's plain version at N = 1 only, over the kernel's
+                  30 steps; the episode's pre-draw timed apart; at N = 1
                   beside a latency floor: each dependent phase's longest
                   FMA chain times the FMA latency plus a barrier), the flash
                   forward at the serving shapes of Yi-9B, zamba2-7b and
@@ -306,16 +367,19 @@ toolkit (``nvcc``) and PyTorch built for CUDA. Phases, one JSON line each:
                   call computes either scan); each beside the bound from
                   the shapes.
 
-Then the whole run's seconds, the ``{"kernels": [...]}`` line,
+Then the whole run's seconds and each phase's (``per_phase_seconds``;
+each phase's seconds also go to the standard error as it ends), the
+``{"kernels": [...]}`` line,
 ``nvidia-smi``'s line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 It exits non-zero, printing no result, where no CUDA device exists or where
 the repository's ``src/repro_torch`` is not beside it.
 
 Phases 1-7b and 8-18 and the matching timings are the earlier slices';
-phase 7c is the guardrails', whose guarded path launches ``ddpg_learn``
-once per step per chunk (its count in the ``kernels`` line's
-``launches_by_path`` under ``guarded``).
+phase 7c is the guardrails', 7d resilience's and 7e sharing's, whose paths
+launch ``ddpg_learn`` once per step per chunk (its counts in the
+``kernels`` line's ``launches_by_path`` under ``guarded``, ``resilient``
+and ``shared``).
 
     python3 chip_smoke.py --profile
 
@@ -338,6 +402,12 @@ episode kernel and of the plain version on the CPU are from the plain
 version on the card, over the sessions whose decisions agree so far: the
 learning itself amplifies rounding, so the learner is held at T = 30 by
 neither.
+
+    python3 chip_smoke.py --layer-steps
+
+instead builds the kernels and times the guarded and the resilient fleet
+step of 1,024 sessions (``phase_layer_steps``), to compare two trees'
+per-step bodies in one call.
 """
 
 from __future__ import annotations
@@ -388,6 +458,9 @@ WINDOW_RTOL_P90 = 1e-5
 #: the warmup steps
 TUNE_WINDOW_RTOL = 1e-5
 EP_STEPS = 30
+#: timed runs of the plain learner at N = 1,024 (20 before; ~1 s
+#: each on the card)
+PLAIN_TIMED_RUNS = 5
 WARMUP_STEPS = 8
 #: a dependent float32 FMA's latency on Hopper, and one __syncthreads of
 #: the learners' 512-thread block on an H100 (clock64 around 1,000 of them),
@@ -1232,10 +1305,15 @@ FLEET_WORKLOADS = ("file_server", "video_server", "seq_write", "seq_read")
 FLEET_SEEDS = 256  # x 4 workloads: 1,024 sessions
 #: (chunk, overlap) of the four schedules the scan fleet runs
 FLEET_SCHEDULES = ((None, True), (256, True), (256, False), (300, True))
+#: on the 8-D space only the first two schedules run (cut for the run's
+#: time; the 2-D space runs all four)
+FLEET_SCHEDULES_8D = FLEET_SCHEDULES[:2]
 FLEET_SAMPLED = 8
-#: steps of the host-engine fleet (its numpy simulator is ~1.2-1.5 ms a
-#: session-step, so 30 steps of 1,024 sessions took a minute a space)
-FLEET_HOST_STEPS = 10
+#: steps of the host-engine fleet on 2-D and 8-D (its numpy simulator is
+#: ~1.2-1.5 ms a session-step, so 30 steps of 1,024 sessions took a minute
+#: a space; 10 before, cut for the run's time)
+FLEET_HOST_STEPS = 5
+FLEET_HOST_STEPS_8D = 3
 #: the allocator's rounding and the small tensors of the final
 #: recommendation, beside the plan's chunk and pre-draw bytes
 FLEET_PEAK_MARGIN = 64 << 20
@@ -1255,7 +1333,7 @@ def fleet_snapshot(tuner, trace) -> dict:
             "window": [x.clone() for x in (s, a, r, s2)],
             "cursors": (agent.buffer._next, int(sizes[0])),
             "learn_keys": agent._learn_keys.clone(),
-            "env_keys": torch.stack([e.model_state.key.cpu()
+            "env_keys": torch.stack([e.model.key_of(e.model_state).cpu()
                                      for e in tuner.envs])}
 
 
@@ -1336,7 +1414,9 @@ def phase_fleet(space: str, smi: str) -> dict:
 
     # 1. the scan fleet under four schedules, bitwise equal
     runs, mono = [], None
-    for chunk, overlap in FLEET_SCHEDULES:
+    schedules = FLEET_SCHEDULES if space == "2d" else FLEET_SCHEDULES_8D
+    host_steps = FLEET_HOST_STEPS if space == "2d" else FLEET_HOST_STEPS_8D
+    for chunk, overlap in schedules:
         t0 = time.perf_counter()
         tuner = FleetTuner.from_grid(*grid, env_cls=env_cls, engine="scan",
                                      chunk=chunk, overlap=overlap)
@@ -1461,14 +1541,14 @@ def phase_fleet(space: str, smi: str) -> dict:
     ddpg_learn.launches = 0
     episode_learn.launches = 0
     t0 = time.perf_counter()
-    result = host.run(FLEET_HOST_STEPS)
+    result = host.run(host_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if ddpg_learn.launches != FLEET_HOST_STEPS or \
+    if ddpg_learn.launches != host_steps or \
             episode_learn.launches != 0:
         raise AssertionError(f"{space}: the host fleet launched ddpg_learn "
                              f"{ddpg_learn.launches} times in "
-                             f"{FLEET_HOST_STEPS} steps")
+                             f"{host_steps} steps")
     if not all(np.isfinite(list(h.metrics.values())).all()
                for r in result.results for h in r.history):
         raise AssertionError(f"{space}: non-finite host fleet metrics")
@@ -1491,13 +1571,13 @@ def phase_fleet(space: str, smi: str) -> dict:
         bmm = actor_apply(unflatten(flat, cfg)["actor"], x[:, None])[:, 0]
         bmm_one = torch.cat([actor_apply(unflatten(flat[i:i + 1], cfg)[
             "actor"], x[i:i + 1, None])[:, 0] for i in range(rows)])
-    out["host"] = {"launches": FLEET_HOST_STEPS, "steps": FLEET_HOST_STEPS,
+    out["host"] = {"launches": host_steps, "steps": host_steps,
                    "build_seconds": build_s,
                    "default_eval_seconds": host.timings["default_eval"],
                    "run_seconds": wall,
-                   "step_seconds": wall / FLEET_HOST_STEPS,
+                   "step_seconds": wall / host_steps,
                    "session_steps_per_second":
-                       sessions * FLEET_HOST_STEPS / wall,
+                       sessions * host_steps / wall,
                    "act_seconds": host.timings["act"],
                    "env_seconds": host.timings["env"],
                    "learn_seconds": host.timings["learn"],
@@ -1513,7 +1593,7 @@ def phase_fleet(space: str, smi: str) -> dict:
 #: the service phase: lease width, rounds of steps, tenants that churn
 SERVICE_CHUNK = 256
 SERVICE_ROUNDS = 3
-SERVICE_ROUND_STEPS = 10
+SERVICE_ROUND_STEPS = 5  # 10 before, cut for the run's time
 SERVICE_CHURN = 64
 
 
@@ -1772,11 +1852,11 @@ GUARD_BODY_SESSIONS = 64
 GUARD_FAULT_SESSIONS = 256
 GUARD_FAULT_STEPS = 20
 GUARD_REPLAY_STEPS = 10
-#: steps of the guarded fleets and services ((c), (e)): 20, not the 30 of
+#: steps of the guarded fleets and services ((c), (e)): 10, not the 30 of
 #: the other phases, to keep the whole run under 1,000 s (a guarded step
 #: of 1,024 sessions costs ~0.15 s monolithic and ~0.55 s in chunks of 256
-#: on an H100); the service's resume runs two halves of it
-GUARD_FLEET_STEPS = 20
+#: on an H100; 20 before); the service's resume runs two halves of it
+GUARD_FLEET_STEPS = 10
 
 
 class StepTimer:
@@ -2182,6 +2262,812 @@ def phase_guard(smi: str) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
+
+
+#: the resilience phase: steps, the reference example's NaN poison
+#: (``examples/tune_fleet.py``'s --chaos), the degrade case's poison and
+#: policy, the small stall fleet and its watchdog
+RESILIENCE_STEPS = 20
+RESILIENCE_POISON = {"nan_metric": "throughput", "nan_start": 6,
+                     "nan_duration": 2}
+DEGRADE_POISON = {"nan_metric": "throughput", "nan_start": 6,
+                  "nan_duration": 3}
+DEGRADE_POLICY = {"max_resets": 2}
+DEGRADE_SESSIONS = 256
+UNFAULTED_SESSIONS = 16
+STALL_SEEDS = 16  # x 4 workloads: 64 sessions in chunks of 32
+STALL_STEPS = 4
+STALL_SECONDS = 1.0
+WATCHDOG_SECONDS = 0.8
+#: the planted non-finite learners: sessions with NaN, inf, and a 1e38
+#: reward in their windows
+PLANTED = {"nan": (3, 700), "inf": (5, 900), "reward": (9, 1000)}
+
+
+def bits_of(x) -> bytes:
+    """A float's bits, every NaN one value, for bitwise comparisons of
+    histories that hold NaN readings: a resumed service's history comes
+    back from the checkpoint's JSON record, which keeps a NaN but not its
+    payload (the card's arithmetic makes NaNs of other payloads than the
+    poison's)."""
+    import struct
+    x = float(x)
+    return b"nan" if x != x else struct.pack("<d", x)
+
+
+def nan_result_mismatch(a, b) -> list:
+    """``result_mismatch`` with NaN readings compared by their bits."""
+    def records(r):
+        return [(h.step, h.config,
+                 tuple((k, bits_of(v)) for k, v in h.metrics.items()),
+                 bits_of(h.objective), bits_of(h.reward),
+                 bits_of(h.restart_seconds)) for h in r.history]
+
+    bad = ["history"] if records(a) != records(b) else []
+    return bad + [f for f in ("best_config", "best_objective",
+                              "best_metrics", "default_config",
+                              "default_metrics",
+                              "simulated_restart_seconds")
+                  if getattr(a, f) != getattr(b, f)]
+
+
+def resilient_snapshot(tuner, pair) -> dict:
+    """``fleet_snapshot`` of a resilient fleet run, with its health state
+    and the per-session cursors."""
+    trace, health = pair
+    snap = fleet_snapshot(tuner, trace)
+    snap["health"] = [x.copy() for x in health[1:]]
+    snap["cursors"] = tuple(tuple(x.tolist())
+                            for x in tuner.agent.buffer.cursors())
+    return snap
+
+
+def resilient_differences(a: dict, b: dict) -> list:
+    """``fleet_differences`` (NaN readings equal to themselves) and the
+    health counters that differ."""
+    import numpy as np
+    a = dict(a, trace={k: np.nan_to_num(v, nan=7.0)
+                       for k, v in a["trace"].items()})
+    b = dict(b, trace={k: np.nan_to_num(v, nan=7.0)
+                       for k, v in b["trace"].items()})
+    return fleet_differences(a, b) + [
+        f"health[{i}]" for i, (x, y) in
+        enumerate(zip(a["health"], b["health"])) if not np.array_equal(x, y)]
+
+
+def resilient_rows(snap: dict, rows) -> dict:
+    """``resilient_snapshot`` of the sessions ``rows`` only."""
+    out = fleet_rows(snap, rows)
+    out["health"] = [x[rows] for x in snap["health"]]
+    out["cursors"] = tuple(tuple(c[i] for i in rows)
+                           for c in snap["cursors"])
+    return out
+
+
+def faulted_factory(poison: dict):
+    """``env_factory`` of a fleet whose every session's model reads the
+    ``ChaosConfig(**poison)`` NaN poison (one schedule: one step_fn)."""
+    from repro_torch.envs import ChaosConfig, FaultInjectedModel, \
+        LustreSimEnv, ModelEnv
+    specs = ChaosConfig(**poison).fault_specs()
+
+    def env_factory(workload, seed):
+        base = LustreSimEnv(workload, seed=seed).as_model()
+        return ModelEnv(FaultInjectedModel(base, specs), seed=seed)
+
+    return env_factory
+
+
+def check_planted(device, sessions: int = None) -> dict:
+    """``ddpg_learn`` (on ``device``: the kernel on a card) and its plain
+    version on the same inputs, with NaN and inf planted in some sessions'
+    learner and a 1e38 reward in others' minibatches: the sessions whose
+    outputs (learner and losses) are non-finite must be the same in both,
+    exactly the planted ones, and the detector
+    (``core.resilience.tree_nonfinite_rows``) must flag exactly them. The
+    losses alone hold the kernel's one known departure: its relu maps NaN
+    to 0 where ``torch.relu`` keeps it, so on a card the kernel's
+    non-finite loss sessions are the plain version's less exactly the
+    sessions with a planted NaN or inf weight (on the CPU both sides run
+    the plain version and agree)."""
+    import torch
+
+    from repro_torch.core.ddpg import DDPGConfig
+    from repro_torch.core.resilience import tree_nonfinite_rows
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ddpg_learn import ddpg_learn_plain
+
+    sessions = sessions or SEED_SESSIONS
+    cfg = DDPGConfig(state_dim=12, action_dim=2)
+    state, batches = fleet_inputs(cfg, sessions, seed=77, device=device)
+    planted = sorted({i for i, _ in PLANTED.values()})
+    state.flat[PLANTED["nan"][0], PLANTED["nan"][1]] = float("nan")
+    state.flat[PLANTED["inf"][0], PLANTED["inf"][1]] = float("inf")
+    batches[2][PLANTED["reward"][0]] = 1e38
+    plain = type(state)(*(x.cpu().clone() for x in state))
+    metrics = ops.ddpg_inner_loop(state, batches, cfg=cfg)
+    ref = ddpg_learn_plain(plain, tuple(b.cpu() for b in batches), cfg=cfg)
+
+    def rows(x):  # [N] bool: a non-finite value in the session's row
+        return ~torch.isfinite(x.reshape(x.shape[0], -1).cpu()).all(1)
+
+    def listed(x):
+        return x.nonzero().flatten().tolist()
+
+    learner = (rows(state.flat), rows(plain.flat))
+    losses = (rows(metrics), rows(ref))
+    outputs = (learner[0] | losses[0], learner[1] | losses[1])
+    weights = sorted({PLANTED["nan"][0], PLANTED["inf"][0]}) \
+        if state.flat.is_cuda else []
+    gap = listed(losses[1] & ~losses[0])
+    if not torch.equal(*outputs) or not torch.equal(*learner) or \
+            bool((losses[0] & ~losses[1]).any()) or gap != weights:
+        raise AssertionError(f"planted: non-finite sessions, kernel / plain:"
+                             f" outputs {listed(outputs[0])} / "
+                             f"{listed(outputs[1])}, learner "
+                             f"{listed(learner[0])} / {listed(learner[1])}, "
+                             f"losses {listed(losses[0])} / "
+                             f"{listed(losses[1])} (the plain version's "
+                             f"alone must be {weights})")
+    flagged = tree_nonfinite_rows((state.flat, metrics)).cpu()
+    if sorted(flagged.nonzero().flatten().tolist()) != planted or \
+            not torch.equal(flagged, tree_nonfinite_rows((plain.flat, ref))):
+        raise AssertionError(f"planted: the detector flags "
+                             f"{flagged.nonzero().flatten().tolist()}, "
+                             f"planted {planted}")
+    return {"sessions": sessions, "planted": PLANTED,
+            "nonfinite_sessions": planted,
+            "nonfinite_learner_sessions": listed(learner[0]),
+            "nonfinite_loss_sessions": {"kernel": listed(losses[0]),
+                                        "plain": listed(losses[1])},
+            "plain_alone_loss_sessions": gap,
+            "same_in_kernel_and_plain": True}
+
+
+def layer_overhead(sessions: int, runs: int = 20) -> dict:
+    """What the resilient step adds to a step of ``sessions`` 2-D
+    learners, CUDA-event medians in ms: the copy of the step's entry
+    learner (the reset target), the non-finite detector over the learners
+    and their losses, and the health update with the learners' write-back
+    (``core.resilience.health_update``)."""
+    import torch
+
+    from repro_torch.core import DDPGConfig, ResiliencePolicy
+    from repro_torch.core.ddpg import DDPGState, state_layout
+    from repro_torch.core.resilience import health_to_torch, \
+        health_update, init_fleet_health_state, tree_nonfinite_rows
+
+    cfg = DDPGConfig(state_dim=12, action_dim=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ddpg = DDPGState(
+        torch.rand((sessions, state_layout(cfg).floats), device="cuda",
+                   generator=gen),
+        torch.zeros((sessions, 2), dtype=torch.int32, device="cuda"),
+        torch.zeros(sessions, dtype=torch.int32, device="cuda"))
+    losses = torch.rand((sessions, UPDATES, 3), device="cuda", generator=gen)
+    policy = ResiliencePolicy()
+    health = health_to_torch(init_fleet_health_state(ddpg, sessions, policy),
+                             "cuda")
+    bad = torch.zeros(sessions, dtype=torch.bool, device="cuda")
+
+    def update():
+        kept, _, _ = health_update(policy, health, bad, ddpg, ddpg)
+        for dst, src in zip(ddpg, kept):
+            dst.copy_(src)
+
+    return {"sessions": sessions,
+            "entry_copy": time_ms(
+                lambda: DDPGState(*(x.clone() for x in ddpg)), runs),
+            "detector": time_ms(
+                lambda: tree_nonfinite_rows((ddpg.flat, losses)), runs),
+            "health_update": time_ms(update, runs)}
+
+
+#: steps and runs of each ``--layer-steps`` fleet
+LAYER_STEPS = 10
+LAYER_RUNS = 3
+
+
+def phase_layer_steps(smi: str) -> None:
+    """``--layer-steps``: the guarded fleet of the guard phase and the
+    poisoned resilient fleet of the resilience phase (1,024 2-D sessions,
+    monolithic), each built and run ``LAYER_RUNS`` times for
+    ``LAYER_STEPS`` steps; one line per run with its episode seconds per
+    step. Two trees run one after the other in one call compare a change
+    to the per-step body."""
+    import torch
+
+    from repro_torch.core import DeploymentPolicy, FleetTuner, \
+        ResiliencePolicy
+
+    grid = (list(FLEET_WORKLOADS), [{"throughput": 1.0}],
+            list(range(FLEET_SEEDS)))
+    for layer, kwargs in (
+            ("guarded", {"policy": DeploymentPolicy(**GUARD_POLICY)}),
+            ("resilient", {"resilience": ResiliencePolicy(),
+                           "env_factory": faulted_factory(
+                               RESILIENCE_POISON)})):
+        for run in range(LAYER_RUNS):
+            tuner = FleetTuner.from_grid(*grid, engine="scan", **kwargs)
+            torch.cuda.synchronize()
+            tuner.run(LAYER_STEPS)
+            torch.cuda.synchronize()
+            episode_s = tuner.timings["episode"]
+            emit({"phase": "layer_steps", "layer": layer, "run": run,
+                  "sessions": len(tuner.envs), "steps": LAYER_STEPS,
+                  "step_seconds": episode_s / LAYER_STEPS, "card": smi})
+            del tuner
+
+
+def phase_resilience(smi: str) -> dict:
+    """The self-healing layer on the card (see the module docstring)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import ChunkSupervisor, FleetService, \
+        FleetTuner, ResiliencePolicy, last_fleet_run_stats, \
+        stepwise_episode
+    from repro_torch.core.resilience import EVENT_DEGRADED, \
+        EVENT_NONFINITE, EVENT_RESET, ResilientCarry, health_counters, \
+        health_to_torch, init_fleet_health_state
+    from repro_torch.envs import ChaosConfig
+
+    t_phase = time.perf_counter()
+    out = {"phase": "resilience", "card": smi, "steps": RESILIENCE_STEPS}
+    policy = ResiliencePolicy()
+    objective = {"throughput": 1.0}
+    grid = (list(FLEET_WORKLOADS), [objective], list(range(FLEET_SEEDS)))
+    sessions = len(FLEET_WORKLOADS) * FLEET_SEEDS
+    factory = faulted_factory(RESILIENCE_POISON)
+    launches = 0  # ddpg_learn's, on the resilient path
+    steps = RESILIENCE_STEPS
+    poisoned = slice(RESILIENCE_POISON["nan_start"],
+                     RESILIENCE_POISON["nan_start"]
+                     + RESILIENCE_POISON["nan_duration"])
+
+    # (a) the poisoned fleet: monolithic (timed by part); in chunks of 256
+    # under a supervisor whose chunk 1 fails twice; 8 fleets of one
+    chaos = ChaosConfig(fail_chunks=((1, 2),)).host()
+    supervisor = ChunkSupervisor(backoff_seconds=0.0)
+    runs, snaps = [], {}
+    for chunk, sup, host_chaos in ((None, None, None),
+                                   (SERVICE_CHUNK, supervisor, chaos)):
+        tuner = FleetTuner.from_grid(*grid, env_factory=factory,
+                                     engine="scan", chunk=chunk,
+                                     resilience=policy, supervisor=sup,
+                                     chaos=host_chaos)
+        timer = StepTimer(tuner.envs) if chunk is None else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            (result, pair), n_ddpg, n_ep = counted(
+                lambda: captured_fleet_run(tuner, steps))
+            torch.cuda.synchronize()
+        finally:
+            if timer is not None:
+                timer.restore()
+        wall = time.perf_counter() - t0
+        chunks = -(-sessions // (chunk or sessions))
+        # a failed attempt fails before its staging: it launches nothing
+        if n_ddpg != steps * chunks or n_ep != 0:
+            raise AssertionError(f"resilience chunk {chunk}: ddpg_learn "
+                                 f"{n_ddpg} launches, episode_learn {n_ep}")
+        launches += n_ddpg
+        ev = tuner.health_events
+        if not (ev[:, poisoned] & EVENT_NONFINITE).all() or \
+                not (ev[:, poisoned] & EVENT_RESET).all() or \
+                (ev[:, poisoned.stop:] & EVENT_NONFINITE).any() or \
+                (ev & EVENT_DEGRADED).any():
+            raise AssertionError(f"resilience chunk {chunk}: the poison's "
+                                 f"events are not every session's resets")
+        health = pair[1]
+        for i in range(sessions):  # trace counters == carried totals
+            c = health_counters(ev[i])
+            if (c["resets"], c["nonfinite"]) != \
+                    (int(health.resets[i]), int(health.nonfinite[i])):
+                raise AssertionError(f"resilience: session {i}'s counters "
+                                     f"differ from its carried totals")
+        episode_s = tuner.timings["episode"]
+        row = {"chunk": chunk, "launches": n_ddpg, "run_seconds": wall,
+               "episode_seconds": episode_s,
+               "step_seconds": episode_s / steps,
+               "session_steps_per_second": sessions * steps / episode_s,
+               "resets": int(((ev & EVENT_RESET) != 0).sum()),
+               "nonfinite": int(((ev & EVENT_NONFINITE) != 0).sum())}
+        if sup is not None:
+            stats = last_fleet_run_stats()["supervisor"]
+            if stats["retries"] != 2 or stats["failed_chunks"]:
+                raise AssertionError(f"resilience: supervisor stats {stats}")
+            row["supervisor"] = {k: stats[k] for k in
+                                 ("retries", "watchdog_trips",
+                                  "failed_chunks")}
+        if timer is not None:
+            parts = timer.seconds()
+            per = {key: v / steps for key, v in parts.items()}
+            per["rest"] = row["step_seconds"] - per["act"] - \
+                per["model_steps"] - per["step_draws"] - per["learn"]
+            row["per_step_device_seconds"] = per
+            labels, seeds = list(tuner.labels), list(tuner.agent.seeds)
+            static = result
+        snaps[chunk] = resilient_snapshot(tuner, pair)
+        runs.append(row)
+        del tuner, pair
+    bad = resilient_differences(snaps[SERVICE_CHUNK], snaps[None])
+    if bad:
+        raise AssertionError(f"resilience: the supervised chunks of "
+                             f"{SERVICE_CHUNK} differ from the monolithic "
+                             f"run: {bad}")
+    picked = [i * sessions // FLEET_SAMPLED for i in range(FLEET_SAMPLED)]
+    for i in picked:
+        one = FleetTuner.from_grid([labels[i].split("|")[0]], [objective],
+                                   [seeds[i]], env_factory=factory,
+                                   engine="scan", resilience=policy)
+        (_, pair), n_ddpg, _ = counted(lambda: captured_fleet_run(one, steps))
+        launches += n_ddpg
+        bad = resilient_differences(resilient_snapshot(one, pair),
+                                    resilient_rows(snaps[None], [i]))
+        if bad:
+            raise AssertionError(f"resilience: session {i} differs from "
+                                 f"its fleet of one: {bad}")
+    out["fleet"] = {"sessions": sessions, "runs": runs,
+                    "supervised_chunks_bitwise_equal_to_monolithic": True,
+                    "independent_sessions": picked}
+    del snaps
+
+    # (b) without faults, the resilient body is the body with no layer
+    op, spec = episode_inputs("2d", UNFAULTED_SESSIONS, seed=600,
+                              device="cuda", steps=steps)
+    plain, healed = clone_tree(op), clone_tree(op)
+    health = health_to_torch(init_fleet_health_state(
+        healed.carry.ddpg, UNFAULTED_SESSIONS, policy), "cuda")
+    t_plain, n_plain, _ = counted(lambda: stepwise_episode(plain,
+                                                           spec=spec))
+    t_heal, n_heal, _ = counted(lambda: stepwise_episode(
+        healed._replace(carry=ResilientCarry(healed.carry, health)),
+        spec=spec, resilience=policy))
+    torch.cuda.synchronize()
+    launches += n_heal
+    if not (tree_equal(tuple(t_heal)[:5], tuple(t_plain)) and
+            tree_equal(healed, plain)) or t_heal.health_events.any():
+        raise AssertionError("resilience: the body without faults differs "
+                             "from the body with no layer")
+    out["unfaulted_body"] = {"sessions": UNFAULTED_SESSIONS,
+                             "steps": steps,
+                             "bitwise_equal_to_plain_body": True,
+                             "launches": n_heal}
+    del op, plain, healed, health
+
+    # (c) a 3-step poison at max_resets=2: every session degrades, and the
+    # frozen learner stays bitwise still
+    degrade = FleetTuner.from_grid(
+        list(FLEET_WORKLOADS), [objective],
+        list(range(DEGRADE_SESSIONS // len(FLEET_WORKLOADS))),
+        env_factory=faulted_factory(DEGRADE_POISON), engine="scan",
+        resilience=ResiliencePolicy(**DEGRADE_POLICY))
+    frozen_at = DEGRADE_POISON["nan_start"] + DEGRADE_POISON["nan_duration"]
+    _, n1, _ = counted(lambda: degrade.run(frozen_at))
+    frozen = [x.clone() for x in degrade.agent.states]
+    _, n2, _ = counted(lambda: degrade.run(steps - frozen_at))
+    launches += n1 + n2
+    ev = degrade.health_events
+    if not (ev[:, frozen_at - 1:] & EVENT_DEGRADED).all() or \
+            not (((ev & EVENT_RESET) != 0).sum(1)
+                 == DEGRADE_POLICY["max_resets"]).all():
+        raise AssertionError("resilience: the 3-step poison did not degrade "
+                             "every session after its resets")
+    if not all(torch.equal(x, y) for x, y in zip(frozen,
+                                                 degrade.agent.states)):
+        raise AssertionError("resilience: a degraded learner moved")
+    out["degrade"] = {"sessions": DEGRADE_SESSIONS, "steps": steps,
+                      "degraded_sessions": DEGRADE_SESSIONS,
+                      "frozen_learner_bitwise_still": True}
+    del degrade
+
+    # (d) a stall trips the watchdog and leaves the bits as they were
+    small = (list(FLEET_WORKLOADS), [objective], list(range(STALL_SEEDS)))
+    stall = ChaosConfig(stall_chunks=((0, STALL_SECONDS),)).host()
+    kw = dict(env_factory=factory, engine="scan", chunk=STALL_SEEDS * 2,
+              resilience=policy)
+    quiet = FleetTuner.from_grid(*small, **kw)
+    stalled = FleetTuner.from_grid(
+        *small, supervisor=ChunkSupervisor(
+            backoff_seconds=0.0, watchdog_seconds=WATCHDOG_SECONDS),
+        chaos=stall, **kw)
+    (rq, pq), nq, _ = counted(lambda: captured_fleet_run(quiet,
+                                                         STALL_STEPS))
+    (rs, ps), ns, _ = counted(lambda: captured_fleet_run(stalled,
+                                                         STALL_STEPS))
+    launches += nq + ns
+    stats = last_fleet_run_stats()["supervisor"]
+    bad = resilient_differences(resilient_snapshot(stalled, ps),
+                                resilient_snapshot(quiet, pq))
+    if stats["watchdog_trips"] < 1 or bad:
+        raise AssertionError(f"resilience: the stall's watchdog trips "
+                             f"{stats['watchdog_trips']}, differences {bad}")
+    out["stall"] = {"sessions": len(quiet.envs), "steps": STALL_STEPS,
+                    "watchdog_trips": stats["watchdog_trips"],
+                    "chunk_seconds": stats["chunk_seconds"],
+                    "bitwise_equal_to_unstalled": True}
+    del quiet, stalled
+
+    # (e) a service whose chunk 1 never stages: its 256 sessions are
+    # quarantined, the survivors equal the static fleet; (f) a resilient
+    # service resumes bitwise from a checkpoint
+    cells = service_cells()
+
+    def service(**kw):
+        svc = FleetService(chunk=SERVICE_CHUNK, resilience=policy,
+                           env_factory=factory, **kw)
+        return svc, [svc.request_join(w, objective, s) for w, s in cells]
+
+    def advance(svc, n):
+        nonlocal launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, n_ddpg, n_ep = counted(lambda: svc.advance(n))
+        torch.cuda.synchronize()
+        if n_ep != 0:
+            raise AssertionError("resilience service: episode_learn ran")
+        launches += n_ddpg
+        return {"steps": n, "launches": n_ddpg,
+                "wall_seconds": time.perf_counter() - t0}
+
+    def results(svc, sids):
+        for sid in sids:
+            svc.request_leave(sid)
+        svc.advance(0)
+        return [svc.result(sid) for sid in sids]
+
+    dead, d_sids = service(supervisor=ChunkSupervisor(
+        max_retries=1, backoff_seconds=0.0),
+        chaos=ChaosConfig(fail_chunks=((1, 99),)).host())
+    quarantine_run = advance(dead, steps)
+    lost = d_sids[SERVICE_CHUNK:2 * SERVICE_CHUNK]
+    if dead.last_stats["quarantined"] != lost or \
+            dead.last_stats["supervisor"]["failed_chunks"] != [1]:
+        raise AssertionError("resilience service: the dead chunk's sessions "
+                             "were not the quarantined ones")
+    dead.advance(0)
+    if any(sid in dead._sessions or dead.result(sid).history
+           for sid in lost):
+        raise AssertionError("resilience service: a quarantined session "
+                             "stayed or kept a history")
+    survivors = [i for i, sid in enumerate(d_sids) if sid not in lost]
+    got = results(dead, [d_sids[i] for i in survivors])
+    bad = [i for i, r in zip(survivors, got)
+           if nan_result_mismatch(r, static.results[i])]
+    if bad:
+        raise AssertionError(f"resilience service: {len(bad)} survivors "
+                             f"differ from the static fleet, first "
+                             f"{bad[:8]}")
+    half = steps // 2
+    with tempfile.TemporaryDirectory() as ckpt:
+        first, f_sids = service(checkpoint_dir=ckpt,
+                                supervisor=ChunkSupervisor())
+        halves = [advance(first, half)]
+        t0 = time.perf_counter()
+        first.checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = FleetService.restore(ckpt, env_factory=factory)
+        restore_s = time.perf_counter() - t0
+        if resumed.resilience != policy or \
+                resumed.supervisor != ChunkSupervisor():
+            raise AssertionError("resilience service: the policies were not "
+                                 "restored")
+        halves.append(advance(resumed, steps - half))
+    bad = [i for i, r in enumerate(results(resumed, f_sids))
+           if nan_result_mismatch(r, static.results[i])
+           or r.health_stats != static.results[i].health_stats]
+    if bad:
+        raise AssertionError(f"resilience service: {len(bad)} resumed "
+                             f"sessions differ, first {bad[:8]}")
+    out["service"] = {"quarantine_advance": quarantine_run,
+                      "quarantined": len(lost),
+                      "survivors_bitwise_equal_to_static": len(survivors),
+                      "halves": halves, "checkpoint_seconds": ckpt_s,
+                      "restore_seconds": restore_s,
+                      "resumed_bitwise_equal_to_static": len(f_sids)}
+
+    # (g) planted non-finite learners through the kernel; (h) what the
+    # layer adds to a step
+    out["planted"] = check_planted("cuda")
+    out["overhead_ms"] = layer_overhead(sessions)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+#: the share phase (8-D): cells of 8 consecutive sessions, the reference
+#: benchmark's window (8 x 64 / 2 slots) and warmup
+#: (``benchmarks/shared_experience.py``), its sharing modes and scope
+SHARE_STEPS = 20
+SHARE_CELL = 8
+SHARE_CAPACITY = SHARE_CELL * CAPACITY // 2
+SHARE_WARMUP = 1
+SHARE_CONFIG = {"shared_replay": True, "avg_every": 4, "avg_opt_state": True,
+                "observation_scopes": ("OSC",)}
+#: the poisoned-member check: sessions (cells of SHARE_CELL) and the lane
+POISON_SESSIONS = 32
+POISON_LANE = 3
+
+
+def share_fleet(chunk, device=None):
+    """The share phase's fleet: ``from_grid``'s sessions (4 workloads x
+    ``FLEET_SEEDS`` seeds, ordered by workload, seeds ``s + 1000 x cell``)
+    on the 8-D space in cells of ``SHARE_CELL`` consecutive sessions, each
+    cell's window of ``SHARE_CAPACITY`` slots merged."""
+    from repro_torch.core import DDPGConfig, FleetAgent, FleetTuner, \
+        Scalarizer, SharingConfig
+    from repro_torch.envs import LustreSimV2
+
+    objective = {"throughput": 1.0}
+    seeds = FLEET_SEEDS
+    envs, scals, labels, cell_seeds = [], [], [], []
+    for i, workload in enumerate(FLEET_WORKLOADS):
+        for s in range(seeds):
+            cell_seed = s + 1000 * (i * seeds + s)
+            env = LustreSimV2(workload, seed=cell_seed).to_model_env(
+                device=device)
+            envs.append(env)
+            scals.append(Scalarizer(weights=objective,
+                                    specs=env.metric_specs))
+            labels.append(f"{workload}|throughput|seed{s}")
+            cell_seeds.append(cell_seed)
+    agent = FleetAgent(DDPGConfig.for_env(envs[0]), cell_seeds,
+                       buffer_capacity=SHARE_CAPACITY,
+                       warmup_steps=SHARE_WARMUP, store="host",
+                       init_chunk=chunk, device=device,
+                       replay_groups=[i // SHARE_CELL
+                                      for i in range(len(envs))])
+    return FleetTuner(envs, scals, agent, labels=labels, engine="scan",
+                      chunk=chunk, sharing=SharingConfig(**SHARE_CONFIG),
+                      cell_size=SHARE_CELL, device=device)
+
+
+def share_snapshot(tuner, trace) -> dict:
+    """A sharing fleet's outputs after a run: every trace leaf, the
+    learners, the cells' merged windows and cursors, the keys."""
+    import torch
+
+    agent = tuner.agent
+    window, nxt, size = agent.buffer.grouped_storage()
+    return {"trace": {name: getattr(trace, name) for name in trace._fields},
+            "learner": [x.clone() for x in agent.states],
+            "window": [x.clone() for x in window],
+            "cursors": (tuple(nxt.tolist()), tuple(size.tolist())),
+            "learn_keys": agent._learn_keys.clone(),
+            "env_keys": torch.stack([e.model.key_of(e.model_state).cpu()
+                                     for e in tuner.envs])}
+
+
+class MergedWalk:
+    """Holds every merged FIFO write of a run (``core.episode.
+    _write_merged``) against a sequential walk of the members' writes: for
+    each cell, its kept members in session order, each at the cell's
+    cursor, the cursor then advanced by one, as appends one by one
+    (``BatchedReplayBuffer(groups=...).add``) write them. Counts the writes
+    it checked."""
+
+    def __init__(self):
+        import repro_torch.core.episode as episode
+
+        self.episode = episode
+        self.saved = episode._write_merged
+        self.writes = 0
+
+        def checked(window, rows, keep, cell_size):
+            before = [x.cpu().clone() for x in window]
+            self.saved(window, rows, keep, cell_size)
+            self.check(before, [x.cpu() for x in window],
+                       [r.cpu() for r in rows], keep.cpu(), cell_size)
+
+        episode._write_merged = checked
+
+    def check(self, before, after, rows, keep, cs: int) -> None:
+        import torch
+
+        *win, nxt, size = before
+        cap = win[0].shape[1]
+        walked = [x.clone() for x in win]
+        cursor = nxt.long().clone()
+        count = size.long().clone()
+        for j in range(cs):  # member j of every cell, in session order
+            g = keep[j::cs].nonzero().flatten()
+            for dst, row in zip(walked, rows):
+                dst[g, cursor[g]] = row[g * cs + j]
+            cursor[g] = (cursor[g] + 1) % cap
+            count[g] = torch.clamp(count[g] + 1, max=cap)
+        want = walked + [cursor.to(nxt.dtype), count.to(size.dtype)]
+        if not all(torch.equal(x, y) for x, y in zip(after, want)):
+            raise AssertionError("share: a merged write differs from the "
+                                 "sequential walk of its members' writes")
+        self.writes += 1
+
+    def restore(self) -> None:
+        self.episode._write_merged = self.saved
+
+
+def poisoned_member(device, sessions: int = None,
+                    steps: int = None) -> dict:
+    """One member of a cell with a poisoned reading at every step (its
+    model's parameters NaN) against the same member inactive (it never
+    writes to the window nor weighs in the mean), under the share phase's
+    sharing and ``ResiliencePolicy()``, through ``stepwise_episode`` on
+    ``device``: its cellmates' merged window, learners and traces must be
+    bitwise equal, so the poisoned member added nothing to the window or
+    to the mean. Returns the learner launches and what was held."""
+    import torch
+
+    from repro_torch.core import ResiliencePolicy, SharingConfig, \
+        stepwise_episode
+    from repro_torch.core.episode import BufferState, CellInputs
+    from repro_torch.core.resilience import EVENT_NONFINITE, \
+        ResilientCarry, health_to_torch, init_fleet_health_state
+
+    sessions, steps = sessions or POISON_SESSIONS, steps or SHARE_STEPS
+    op, spec = episode_inputs("8d", sessions, seed=900, device=device,
+                              steps=steps)
+    cells = sessions // SHARE_CELL
+    k, m = spec.cfg.state_dim, spec.cfg.action_dim
+    z = torch.zeros
+    merged = BufferState(
+        z((cells, CAPACITY, k), device=device),
+        z((cells, CAPACITY, m), device=device),
+        z((cells, CAPACITY), device=device),
+        z((cells, CAPACITY, k), device=device),
+        z(cells, dtype=torch.int32, device=device),
+        z(cells, dtype=torch.int32, device=device))
+    op = op._replace(carry=op.carry._replace(buffer=merged))
+    policy = ResiliencePolicy()
+    sharing = SharingConfig(**SHARE_CONFIG)
+    avg_now = torch.zeros((sessions, steps), dtype=torch.bool, device=device)
+    avg_now[:, SHARE_CONFIG["avg_every"] - 1::SHARE_CONFIG["avg_every"]] = True
+    runs = {}
+    for case in ("poisoned", "inactive"):
+        run = clone_tree(op)
+        active = torch.ones((sessions, steps), dtype=torch.bool,
+                            device=device)
+        if case == "poisoned":
+            run.params[POISON_LANE] = float("nan")
+        else:
+            active[POISON_LANE] = False
+        health = health_to_torch(init_fleet_health_state(
+            run.carry.ddpg, sessions, policy), device)
+        trace = stepwise_episode(
+            run._replace(carry=ResilientCarry(run.carry, health)),
+            spec=spec, resilience=policy, sharing=sharing,
+            cell_size=SHARE_CELL, cells=CellInputs(avg_now, active))
+        runs[case] = (run, trace, health)
+    (a, ta, ha), (b, tb, hb) = runs["poisoned"], runs["inactive"]
+    if not (ta.health_events[POISON_LANE] & EVENT_NONFINITE).all():
+        raise AssertionError("share: the poisoned member's readings were "
+                             "not all flagged")
+    mates = [i for i in range(sessions) if i != POISON_LANE]
+    same = [tree_equal(a.carry.buffer, b.carry.buffer),
+            torch.equal(a.carry.ddpg.flat[mates], b.carry.ddpg.flat[mates]),
+            all(torch.equal(x[mates], y[mates])
+                for x, y in zip(tuple(ta)[:5], tuple(tb)[:5]))]
+    if not all(same):
+        raise AssertionError(f"share: the poisoned member touched its "
+                             f"cellmates (window, learners, traces equal: "
+                             f"{same})")
+    return {"sessions": sessions, "cell": SHARE_CELL, "lane": POISON_LANE,
+            "steps": steps, "cellmates_bitwise_equal": True}
+
+
+def phase_share(smi: str) -> dict:
+    """Experience sharing on the card (see the module docstring)."""
+    import torch
+
+    from repro_torch.core import FleetService, SharingConfig, \
+        last_fleet_run_stats
+
+    t_phase = time.perf_counter()
+    steps = SHARE_STEPS
+    out = {"phase": "share", "card": smi, "steps": steps,
+           "cell": SHARE_CELL, "capacity": SHARE_CAPACITY,
+           "sharing": SHARE_CONFIG}
+    launches = 0  # ddpg_learn's, on the shared path
+    sessions = len(FLEET_WORKLOADS) * FLEET_SEEDS
+
+    # (a) monolithic (each merged write held against a sequential walk,
+    # timed by part) and in chunks of 256: bitwise equal
+    runs, snaps = [], {}
+    for chunk in (None, SERVICE_CHUNK):
+        tuner = share_fleet(chunk)
+        plan = tuner.memory_plan(steps=steps)
+        if not plan["matches_live"] or plan["cell_size"] != SHARE_CELL:
+            raise AssertionError(f"share: memory_plan {plan}")
+        walk = MergedWalk() if chunk is None else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            (result, trace), n_ddpg, n_ep = counted(
+                lambda: captured_fleet_run(tuner, steps))
+            torch.cuda.synchronize()
+        finally:
+            if walk is not None:
+                walk.restore()
+        wall = time.perf_counter() - t0
+        chunks = -(-sessions // (chunk or sessions))
+        if n_ddpg != steps * chunks or n_ep != 0:
+            raise AssertionError(f"share chunk {chunk}: ddpg_learn {n_ddpg} "
+                                 f"launches, episode_learn {n_ep}")
+        launches += n_ddpg
+        stats = last_fleet_run_stats()
+        episode_s = tuner.timings["episode"]
+        row = {"chunk": stats["chunk"], "launches": n_ddpg,
+               "run_seconds": wall, "episode_seconds": episode_s,
+               "step_seconds": episode_s / steps,
+               "session_steps_per_second": sessions * steps / episode_s,
+               "window_bytes": tuner.agent.buffer.nbytes,
+               "plan_replay_bytes_per_session":
+                   plan["per_session"]["replay_bytes"],
+               "summary": result.summary("throughput")}
+        if walk is not None:
+            if walk.writes != steps:
+                raise AssertionError(f"share: {walk.writes} merged writes "
+                                     f"checked of {steps}")
+            row["merged_writes_held_against_walk"] = walk.writes
+            static = result
+        snaps[chunk] = share_snapshot(tuner, trace)
+        runs.append(row)
+        del tuner, trace
+    bad = fleet_differences(snaps[SERVICE_CHUNK], snaps[None])
+    if bad:
+        raise AssertionError(f"share: chunks of {SERVICE_CHUNK} differ from "
+                             f"the monolithic run: {bad}")
+    out["fleet"] = {"sessions": sessions, "runs": runs,
+                    "chunked_bitwise_equal_to_monolithic": True}
+    del snaps
+
+    # (b) the sharing service == the static sharing fleet
+    svc = FleetService(chunk=SERVICE_CHUNK, sharing=SharingConfig(
+        **SHARE_CONFIG), cell_size=SHARE_CELL,
+        buffer_capacity=SHARE_CAPACITY, warmup_steps=SHARE_WARMUP,
+        env_cls=_lustre_v2())
+    sids = [svc.request_join(w, {"throughput": 1.0}, s)
+            for w, s in service_cells()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, n_ddpg, n_ep = counted(lambda: svc.advance(steps))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if n_ep != 0 or n_ddpg != steps * -(-sessions // SERVICE_CHUNK):
+        raise AssertionError(f"share service: ddpg_learn {n_ddpg} launches")
+    launches += n_ddpg
+    if len(svc._cells) != sessions // SHARE_CELL:
+        raise AssertionError(f"share service: {len(svc._cells)} cells")
+    for sid in sids:
+        svc.request_leave(sid)
+    svc.advance(0)
+    bad = [i for i, sid in enumerate(sids)
+           if result_mismatch(svc.result(sid), static.results[i])]
+    if bad:
+        raise AssertionError(f"share service: {len(bad)} sessions differ "
+                             f"from the static sharing fleet, first "
+                             f"{bad[:8]}")
+    out["service"] = {"advance_seconds": wall, "launches": n_ddpg,
+                      "cells": sessions // SHARE_CELL,
+                      "sessions_bitwise_equal_to_static": len(sids)}
+    del svc
+
+    # (c) one poisoned member leaves its cellmates untouched
+    out["poisoned_member"], n_ddpg, _ = counted(
+        lambda: poisoned_member("cuda"))
+    launches += n_ddpg
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def _lustre_v2():
+    from repro_torch.envs import LustreSimV2
+    return LustreSimV2
 
 
 def flash_inputs(shape, dtype, seed: int):
@@ -4095,7 +4981,8 @@ def phase_timing(configs, smi: str) -> list:
             kernel_ms = time_ms(lambda: ddpg_learn(ks, batches, cfg=cfg), 20)
             ddpg_learn.launches = before  # timing launches are not counted
             plain_ms = time_ms(
-                lambda: ddpg_learn_plain(ps, batches, cfg=cfg), 20, warmup=1)
+                lambda: ddpg_learn_plain(ps, batches, cfg=cfg),
+                20 if n == 1 else PLAIN_TIMED_RUNS, warmup=1)
             w = work(cfg, n, UPDATES)
             flops_ms = w["flops"] / PEAK_F32_FLOPS * 1e3
             bytes_ms = w["bytes"] / PEAK_BYTES * 1e3
@@ -4170,6 +5057,19 @@ def phase_timing_episode(smi: str) -> list:
     return rows
 
 
+def timed(seconds: dict, name: str, fn, *args):
+    """``fn(*args)``, its wall seconds added to ``seconds[name]`` and
+    printed to the standard error as the phase ends (so that a run cut
+    short still says where its time went)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    dt = time.perf_counter() - t0
+    seconds[name] = seconds.get(name, 0.0) + dt
+    print(f"[seconds] {name} {dt:.1f} (run so far "
+          f"{sum(seconds.values()):.1f})", file=sys.stderr, flush=True)
+    return out
+
+
 def tree_map(fn, x):
     import torch
     if isinstance(x, torch.Tensor):
@@ -4199,6 +5099,7 @@ def main() -> int:
     from repro_torch.core.ddpg import DDPGConfig
     from repro_torch.kernels import build
 
+    seconds: dict = {}
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
@@ -4236,35 +5137,46 @@ def main() -> int:
     if sys.argv[1:] == ["--profile-train"]:
         phase_profile_train()
         return 0
-    err = phase_check(configs)
-    ep_err = phase_check_episode()
-    tunes = [phase_tune("2d", 30), phase_tune("8d", 30)]
-    scans = [phase_tune_scan("2d", EP_STEPS), phase_tune_scan("8d", EP_STEPS)]
-    fleets = [phase_fleet("2d", smi), phase_fleet("8d", smi)]
-    service = phase_service(smi)
-    guard = phase_guard(smi)
-    flash_err = phase_check_flash()
-    bwd_err = phase_check_flash_bwd()
-    served = phase_serve()
-    trained = phase_train()
-    gmm_err = phase_check_gmm()
-    moe = phase_serve_moe()
-    ssd_err = phase_check_ssd()
-    hybrid = phase_serve_hybrid()
-    wkv_err = phase_check_wkv()
-    rwkv_fwd = phase_forward_rwkv()
-    rwkv_serve = phase_serve_rwkv()
-    rows = phase_timing(configs, smi)
-    ep_rows = phase_timing_episode(smi)
-    flash_rows = phase_timing_flash(smi)
-    train_rows = {r["kernel"]: r for r in phase_timing_flash_train(smi)}
-    gmm_rows = phase_timing_gmm(smi)
-    ssd_row = phase_timing_ssd(smi)[0]
-    wkv_row = phase_timing_wkv(smi)
+    if sys.argv[1:] == ["--layer-steps"]:
+        phase_layer_steps(smi)
+        return 0
+    seconds["build"] = time.perf_counter() - run_t0
+    err = timed(seconds, "check", phase_check, configs)
+    ep_err = timed(seconds, "check_episode", phase_check_episode)
+    tunes = [timed(seconds, "tune", phase_tune, space, 30)
+             for space in ("2d", "8d")]
+    scans = [timed(seconds, "tune_scan", phase_tune_scan, space, EP_STEPS)
+             for space in ("2d", "8d")]
+    fleets = [timed(seconds, "fleet", phase_fleet, space, smi)
+              for space in ("2d", "8d")]
+    service = timed(seconds, "service", phase_service, smi)
+    guard = timed(seconds, "guard", phase_guard, smi)
+    resilience = timed(seconds, "resilience", phase_resilience, smi)
+    share = timed(seconds, "share", phase_share, smi)
+    flash_err = timed(seconds, "check_flash", phase_check_flash)
+    bwd_err = timed(seconds, "check_flash_bwd", phase_check_flash_bwd)
+    served = timed(seconds, "serve", phase_serve)
+    trained = timed(seconds, "train", phase_train)
+    gmm_err = timed(seconds, "check_gmm", phase_check_gmm)
+    moe = timed(seconds, "serve_moe", phase_serve_moe)
+    ssd_err = timed(seconds, "check_ssd", phase_check_ssd)
+    hybrid = timed(seconds, "serve_hybrid", phase_serve_hybrid)
+    wkv_err = timed(seconds, "check_wkv", phase_check_wkv)
+    rwkv_fwd = timed(seconds, "forward_rwkv", phase_forward_rwkv)
+    rwkv_serve = timed(seconds, "serve_rwkv", phase_serve_rwkv)
+    rows = timed(seconds, "timing", phase_timing, configs, smi)
+    ep_rows = timed(seconds, "timing", phase_timing_episode, smi)
+    flash_rows = timed(seconds, "timing", phase_timing_flash, smi)
+    train_rows = {r["kernel"]: r for r in timed(
+        seconds, "timing", phase_timing_flash_train, smi)}
+    gmm_rows = timed(seconds, "timing", phase_timing_gmm, smi)
+    ssd_row = timed(seconds, "timing", phase_timing_ssd, smi)[0]
+    wkv_row = timed(seconds, "timing", phase_timing_wkv, smi)
     rwkv_held = next(r for r in rwkv_fwd["rows"] if "layers_held" in r)
     moe_held = next(r for r in moe["rows"] if "layers_held" in r)
     hybrid_held = next(r for r in hybrid["rows"] if "layers_held" in r)
-    emit({"phase": "run", "seconds": time.perf_counter() - run_t0})
+    emit({"phase": "run", "seconds": time.perf_counter() - run_t0,
+          "per_phase_seconds": seconds})
 
     main_row = next(r for r in rows
                     if r["space"] == "2d" and r["sessions"] == SEED_SESSIONS)
@@ -4277,11 +5189,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ddpg_learn.cu",
         "replaces": "src/repro/kernels/ddpg_fused.py:316",
         "launches": sum(t["kernel_launches"] for t in tunes)
-        + sum(f["host"]["launches"] for f in fleets) + guard["launches"],
+        + sum(f["host"]["launches"] for f in fleets) + guard["launches"]
+        + resilience["launches"] + share["launches"],
         "launches_by_path": {
             "tune": sum(t["kernel_launches"] for t in tunes),
             "fleet_host": sum(f["host"]["launches"] for f in fleets),
-            "guarded": guard["launches"]},
+            "guarded": guard["launches"],
+            "resilient": resilience["launches"],
+            "shared": share["launches"]},
         "max_abs_err": err["max_abs_err"],
         "median_rel_err": err["median_rel_err"],
         "p90_rel_err": err["p90_rel_err"], "max_rel_err": err["max_rel_err"],
@@ -4308,7 +5223,8 @@ def main() -> int:
         "window_median_rel_err": ep_err["window_median_rel_err"],
         "window_p90_rel_err": ep_err["window_p90_rel_err"],
         "ms": ep_row["ms"], "plain_ms": ep_plain["plain_ms"],
-        "plain_sessions": 1, "bound_ms": ep_row["bound_ms"],
+        "plain_sessions": 1,
+        "bound_ms": ep_row["bound_ms"],
         "bound_by": ep_row["bound_by"], "library_ms": None,
         "sessions": SEED_SESSIONS, "steps": EP_STEPS, "ok": True}, {
         "name": "flash_attention_fwd", "route": "cuda",

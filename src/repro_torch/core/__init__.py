@@ -13,6 +13,13 @@ from repro_torch.core.guardrails import DeploymentPolicy, GuardState, \
     guardrail_counters, guardrail_stats, init_fleet_guard_state, \
     init_guard_state, merge_counters, rollback_decision
 from repro_torch.core.replay_buffer import BatchedReplayBuffer, ReplayBuffer
+from repro_torch.core.resilience import ChunkFailure, ChunkSupervisor, \
+    HealthState, ResiliencePolicy, ResilientEpisodeTrace, \
+    health_counters, health_decision, health_stats, \
+    init_fleet_health_state, init_health_state, merge_health_counters, \
+    normalize_resilience, normalize_supervisor
+from repro_torch.core.sharing import SharingConfig, normalize_sharing, \
+    resolve_obs_mask
 from repro_torch.core.scalarization import MetricSpec, Scalarizer, \
     normalize_state
 from repro_torch.core.service import FleetService
@@ -30,7 +37,12 @@ __all__ = [
     "guardrail_stats", "init_fleet_guard_state", "init_guard_state",
     "merge_counters", "rollback_decision", "FleetAgent", "FleetResult",
     "FleetTuner", "evaluate_fleet", "memory_plan", "replay_compact_trace",
-    "FleetService",
+    "FleetService", "ChunkFailure", "ChunkSupervisor", "HealthState",
+    "ResiliencePolicy", "ResilientEpisodeTrace", "health_counters",
+    "health_decision", "health_stats", "merge_health_counters",
+    "init_fleet_health_state", "init_health_state", "normalize_resilience",
+    "normalize_supervisor", "SharingConfig", "normalize_sharing",
+    "resolve_obs_mask",
     "BatchedReplayBuffer", "ReplayBuffer", "MetricSpec", "Scalarizer",
     "normalize_state", "StepRecord", "Tuner", "TuningResult",
     "evaluate_config", "recommend_final",

@@ -428,29 +428,39 @@ def fleet_act(flat: torch.Tensor, states: torch.Tensor,
 
 def fleet_learn_scan(states: DDPGState, data: tuple, sizes: torch.Tensor,
                      keys: torch.Tensor, cfg: DDPGConfig,
-                     num_updates: int) -> tuple:
+                     num_updates: int, *, windows=None,
+                     check_sizes: bool = True) -> tuple:
     """``ddpg_learn_scan`` of every session in ONE learner call.
 
     Samples the ``[N, num_updates, batch]`` indices from ``keys [N, 2]``
     (threefry, session i bitwise ``sample_minibatch_indices(keys[i], ...,
     sizes[i])``) on the learners' device, gathers every session's
-    minibatches in one pass over ``data`` (``(s, a, r, s2)``, each ``[N,
+    minibatches in one pass over ``data`` (``(s, a, r, s2)``, each ``[W,
     capacity, ...]``), moves them to the learners' device and runs all
     N x ``num_updates`` updates through ``kernels.ops.ddpg_inner_loop``:
     one launch of the CUDA kernel for a CUDA state, the plain PyTorch loop
-    for a CPU state. ``states`` is updated IN PLACE and returned; metrics
-    are ``[N, num_updates]`` tensors. Raises ``ValueError`` if any
-    session's buffer is empty."""
+    for a CPU state. Session i samples window i, or ``windows[i]`` (an int
+    tensor ``[N]``: a cell's merged window, shared replay); ``sizes[i]`` is
+    the size of the window it samples. ``states`` is updated IN PLACE and
+    returned; metrics are ``[N, num_updates]`` tensors.
+
+    Raises ``ValueError`` if any size is below 1, a check that reads the
+    sizes on the host; ``check_sizes=False`` skips it for sizes that stay
+    on the device, whose caller guarantees them (the per-step body writes
+    before it learns, the resilient body clamps them)."""
     from repro_torch.kernels import ops
 
     sizes = torch.as_tensor(sizes)
-    _require_nonempty(sizes.cpu())
+    if check_sizes:
+        _require_nonempty(sizes.cpu())
     where, device = data[0].device, states.flat.device
     n = states.flat.shape[0]
     idx = jrandom.randint_keys(keys.to(device), (num_updates, cfg.batch_size),
                                0, sizes.to(device))
     idx = idx.to(device=where, dtype=torch.int64)
-    rows = torch.arange(n, device=where)[:, None, None]
+    rows = torch.arange(n, device=where) if windows is None else \
+        torch.as_tensor(windows).to(device=where, dtype=torch.int64)
+    rows = rows[:, None, None]
     batches = tuple(x[rows, idx].to(states.flat.device).contiguous()
                     for x in data)
     metrics = ops.ddpg_inner_loop(states, batches, cfg=cfg)

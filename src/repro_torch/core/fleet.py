@@ -23,13 +23,14 @@ Sessions are independent: a fleet of one reproduces the single
 fleet axis buys throughput and never changes the algorithm.
 
 The persistent ``FleetService``, whose sessions join and leave while the
-fleet runs, is ``core.service``. ``policy`` (a
-``core.guardrails.DeploymentPolicy``) guards every session of a scan fleet:
-each chunk then runs the guarded per-step body, one learner launch a step.
-The other policy layers of the reference's fleet (experience sharing,
-resilience, chunk supervision) are ROADMAP item A10b, bfloat16 replay
-storage A7b and a fleet across several cards A11d; each raises
-``NotImplementedError`` here.
+fleet runs, is ``core.service``. The policy layers of a scan fleet each run
+the per-step body, one learner launch a step per chunk: ``policy`` (a
+``core.guardrails.DeploymentPolicy``) guards every session, ``resilience``
+(a ``core.resilience.ResiliencePolicy``) heals them, and ``sharing`` (a
+``core.sharing.SharingConfig``) shares experience within cells of sessions
+or masks their observations. ``supervisor`` and ``chaos`` supervise the
+chunk stream on the host. bfloat16 replay storage is ROADMAP item A7b and
+a fleet across several cards A11d; each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from repro_torch.core.ddpg import (
     fleet_learn_scan,
     state_layout,
 )
-from repro_torch.core.episode import check_guard_composition, tree_map
+from repro_torch.core.episode import resolve_layers, tree_map
 from repro_torch.core.replay_buffer import BatchedReplayBuffer, _is_float32
 from repro_torch.core.scalarization import Scalarizer, normalize_state
 from repro_torch.core.tuner import (
@@ -76,8 +77,10 @@ class FleetAgent:
     card), initialized ``init_chunk`` sessions at a time: the streaming
     chunked episode runtime stages one chunk at a time, so a 1,024-session
     fleet never holds its whole state on the card. Either way each session's
-    values are the same bits. ``replay_dtype`` other than float32 (ROADMAP
-    A7b) and ``replay_groups`` (shared replay, A10b) raise.
+    values are the same bits. ``replay_groups`` (one cell id per session)
+    merges each cell's replay into one shared window
+    (``BatchedReplayBuffer(groups=...)``, shared replay). ``replay_dtype``
+    other than float32 (ROADMAP A7b) raises.
     """
 
     def __init__(self, cfg: DDPGConfig, seeds: Sequence[int],
@@ -90,10 +93,6 @@ class FleetAgent:
         if store not in ("device", "host"):
             raise ValueError(f"unknown store {store!r}; use 'device' or "
                              f"'host'")
-        if replay_groups is not None:
-            raise NotImplementedError(
-                "replay_groups (shared replay) belongs to experience "
-                "sharing, ROADMAP item A10b, not yet in repro_torch")
         self.cfg = cfg
         self.seeds = list(seeds)
         self.num_sessions = len(self.seeds)
@@ -103,7 +102,7 @@ class FleetAgent:
         self.buffer = BatchedReplayBuffer(
             self.num_sessions, buffer_capacity, cfg.state_dim,
             cfg.action_dim, storage_dtype=replay_dtype,
-            storage_backend=store, device=self.device)
+            storage_backend=store, groups=replay_groups, device=self.device)
         keys = torch.stack([jrandom.PRNGKey(s) for s in self.seeds])
         if store == "host":
             ic = int(init_chunk) if init_chunk else min(64,
@@ -312,22 +311,6 @@ def evaluate_fleet(envs: Sequence, configs: Sequence, runs: int) -> list:
     return [{k: v / runs for k, v in a.items()} for a in acc]
 
 
-def refuse_policy_layers(caller: str, cell_size: int = 1, **layers) -> None:
-    """Raise ``NotImplementedError`` for any policy layer that was asked
-    for (a layer that is not ``None``, or cells of more than one session):
-    the reference's sharing, resilience and supervision layers are ROADMAP
-    item A10b."""
-    for name, value in layers.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{caller}({name}=...) belongs to the reference's policy "
-                f"layers, ROADMAP item A10b, not yet in repro_torch")
-    if cell_size != 1:
-        raise NotImplementedError(
-            "cells of sessions (cell_size > 1) belong to experience "
-            "sharing, ROADMAP item A10b, not yet in repro_torch")
-
-
 def recommend_final_fleet(envs: Sequence, scalarizers: Sequence,
                           best_configs: Sequence,
                           policy_configs: Sequence, runs: int) -> list:
@@ -363,14 +346,23 @@ class FleetTuner:
 
     ``device`` (``cuda`` unless given) must be the agent's. Evaluations
     (the default configurations, the final recommendation) go through
-    ``evaluate_fleet``. ``policy`` (``core.guardrails.DeploymentPolicy``,
-    scan engine only) guards every session: per-session counters,
+    ``evaluate_fleet``. The layers run on the scan engine only (the
+    reference's ``ValueError`` elsewhere), and ``policy`` composes with no
+    other (``ValueError``). ``policy`` (``core.guardrails.
+    DeploymentPolicy``) guards every session: per-session counters,
     ``guard_events`` ``[N, T]``, ``shadow_objectives`` and
-    ``guardrail_stats(i)``; the guard persists across ``run()`` calls. The
-    other policy layers (``sharing``, ``cell_size > 1``, ``resilience``,
-    ``supervisor``, ``chaos``) are ROADMAP item A10b and ``devices`` naming
-    more than one card A11d; they raise ``NotImplementedError`` (``policy``
-    beside ``sharing`` or ``resilience``: the reference's ``ValueError``).
+    ``guardrail_stats(i)``; the guard persists across ``run()`` calls.
+    ``resilience`` (``core.resilience.ResiliencePolicy``) heals every
+    session: ``health_events`` ``[N, T]`` and ``health_stats(i)``, the
+    health state persisting across ``run()`` calls, and the histories
+    replayed with a finite baseline (a corrupted reading never becomes a
+    session's state). ``sharing`` (``core.sharing.SharingConfig``) with a
+    cell mode runs cells of ``cell_size`` consecutive sessions (shared
+    replay needs the agent's grouped buffer); its observation scopes mask
+    the learners' view. ``supervisor`` (``core.resilience.
+    ChunkSupervisor``) and ``chaos`` (``envs.faults.HostChaos``, needing a
+    supervisor) supervise the chunk stream. ``devices`` naming more than
+    one card is ROADMAP item A11d (``NotImplementedError``).
 
     ``timings`` holds the host seconds of the last construction and run by
     part: ``default_eval``; for the scan engine ``episode`` (the streamed
@@ -395,11 +387,39 @@ class FleetTuner:
             raise ValueError(
                 "DeploymentPolicy guardrails run inside the episode; use "
                 "engine='scan' (the host loop has no shadow/canary body)")
-        check_guard_composition(policy, sharing=sharing,
-                                resilience=resilience)
-        refuse_policy_layers("FleetTuner", cell_size, sharing=sharing,
-                             resilience=resilience, supervisor=supervisor,
-                             chaos=chaos)
+        from repro_torch.core.sharing import normalize_sharing
+        sharing = normalize_sharing(sharing)
+        if sharing is not None and engine != "scan":
+            raise ValueError(
+                "experience sharing runs inside the episode scan; use "
+                "engine='scan' (the host loop keeps sessions independent)")
+        if resilience is not None:
+            from repro_torch.core.resilience import normalize_resilience
+            resilience = normalize_resilience(resilience)
+        if resilience is not None and engine != "scan":
+            raise ValueError(
+                "ResiliencePolicy runs inside the episode scan; use "
+                "engine='scan' (the host loop has no snapshot/reset body)")
+        if supervisor is not None:
+            from repro_torch.core.resilience import normalize_supervisor
+            supervisor = normalize_supervisor(supervisor)
+        if (supervisor is not None or chaos is not None) and engine != "scan":
+            raise ValueError(
+                "chunk supervision is a scan-engine feature (the host loop "
+                "has no chunk stream to supervise)")
+        layers = resolve_layers(policy, resilience, None, sharing,
+                                cell_size)
+        self.cell_size = layers.cell_size
+        if layers.cells and len(envs) % self.cell_size != 0:
+            raise ValueError(
+                f"experience sharing needs whole cells: {len(envs)} sessions "
+                f"is not a multiple of cell_size={self.cell_size}")
+        if layers.shared_replay and agent.buffer.groups is None:
+            raise ValueError(
+                "shared replay needs a grouped replay buffer: build the "
+                "fleet with from_grid(sharing=...) or pass "
+                "FleetAgent(..., replay_groups=...)")
+        self.sharing = sharing
         device = resolve_device(device)
         if device.type != agent.device.type or None not in (
                 device.index, agent.device.index) and \
@@ -431,9 +451,19 @@ class FleetTuner:
         self.guard_events = np.zeros((len(envs), 0), np.uint8)
         self.shadow_objectives = np.zeros((len(envs), 0), np.float32)
         self._guard_counters: Optional[list] = None  # one dict per session
+        self.resilience = resilience
+        self.supervisor = supervisor
+        self.chaos = chaos
+        self._health = None  # stacked HealthState, persists across run()
+        self.health_events = np.zeros((len(envs), 0), np.uint8)
+        self._health_counters: Optional[list] = None  # one dict per session
         self.envs = list(envs)
         self.scalarizers = list(scalarizers)
         self.agent = agent
+        from repro_torch.core.sharing import resolve_obs_mask
+        self._obs_mask = resolve_obs_mask(
+            self.sharing, self.envs[0].metric_specs,
+            self.envs[0].state_metrics)
         self.eval_runs = eval_runs
         self.labels = list(labels) if labels else [
             f"session{i}" for i in range(len(self.envs))]
@@ -496,12 +526,17 @@ class FleetTuner:
         chunks on copy streams beside the compute stream, bitwise the
         serial schedule.
 
-        ``policy`` guards every session (``FleetTuner``). ``device`` is
-        where the fleet runs: ``cuda`` unless given, so without a card the
-        caller must pass ``"cpu"``. ``replay_dtype`` other than float32
-        (ROADMAP A7b), ``sharing``, ``resilience``, ``supervisor``,
-        ``chaos`` (A10b) and more than one device (A11d) raise
-        ``NotImplementedError``."""
+        ``policy``, ``resilience``, ``supervisor`` and ``chaos`` apply to
+        every session (``FleetTuner``). ``sharing`` shares experience
+        within each workload x objective CELL: the ``len(seeds)``
+        consecutive sessions that tune one surface under different seeds
+        (with shared replay the agent's buffer is built grouped by cell).
+        ``device`` is where the fleet runs: ``cuda`` unless given, so
+        without a card the caller must pass ``"cpu"``. ``replay_dtype``
+        other than float32 (ROADMAP A7b) and more than one device (A11d)
+        raise ``NotImplementedError``."""
+        from repro_torch.core.sharing import normalize_sharing
+        sharing = normalize_sharing(sharing)
         device = resolve_device(device)
         if env_factory is not None and env_cls is not None:
             raise ValueError(
@@ -549,16 +584,25 @@ class FleetTuner:
             raise ValueError(
                 "empty grid: need at least one workload, objective and seed")
         cfg = ddpg_config or DDPGConfig.for_env(envs[0])
+        # seeds iterate innermost, so a workload x objective cell is
+        # exactly len(seeds) consecutive sessions: the sharing cells
+        cell_size = len(list(seeds))
+        cell_modes = sharing is not None and sharing.cells
+        replay_groups = None
+        if sharing is not None and sharing.shared_replay:
+            replay_groups = [i // cell_size for i in range(len(envs))]
         agent = FleetAgent(cfg, cell_seeds, buffer_capacity=buffer_capacity,
                            warmup_steps=warmup_steps,
                            store="host" if engine == "scan" else "device",
                            replay_dtype=replay_dtype, init_chunk=chunk,
-                           device=device)
+                           replay_groups=replay_groups, device=device)
         return cls(envs, scals, agent, eval_runs=eval_runs, labels=labels,
                    engine=engine, devices=devices if engine == "scan" else None,
                    chunk=chunk if engine == "scan" else None, overlap=overlap,
-                   policy=policy, sharing=sharing, resilience=resilience,
-                   supervisor=supervisor, chaos=chaos, device=device)
+                   policy=policy, sharing=sharing,
+                   cell_size=cell_size if cell_modes else 1,
+                   resilience=resilience, supervisor=supervisor, chaos=chaos,
+                   device=device)
 
     # ------------------------------------------------------------------
 
@@ -574,12 +618,14 @@ class FleetTuner:
             env_state_bytes = sum(x.numel() * x.element_size()
                                   for x in self.envs[0].model_state)
         model = getattr(self.envs[0], "model", None)
+        shared_cell = (self.cell_size
+                       if self.agent.buffer.groups is not None else 1)
         plan = memory_plan(
             self.agent.cfg, self.envs[0].param_space, sessions=n,
             steps=steps, chunk=self.chunk,
             capacity=self.agent.buffer.capacity,
             env_state_bytes_per_session=env_state_bytes,
-            n_samples=getattr(model, "n_samples", 0))
+            n_samples=getattr(model, "n_samples", 0), cell_size=shared_cell)
         live_learner = sum(x.numel() * x.element_size()
                            for x in self.agent.states) // n
         live_replay = self.agent.buffer.nbytes // n
@@ -599,7 +645,8 @@ class FleetTuner:
         from repro_torch.core.episode import precompile_fleet_episode
         return precompile_fleet_episode(
             self.envs[0], self.agent, steps, sessions=len(self.envs),
-            chunk=self.chunk, devices=self.devices, policy=self.policy)
+            chunk=self.chunk, devices=self.devices, policy=self.policy,
+            stepwise=(self.resilience is not None or self.sharing is not None))
 
     # ------------------------------------------------------------------
 
@@ -643,11 +690,35 @@ class FleetTuner:
         from repro_torch.core.episode import run_fleet_episode_scan
         start = len(self.histories[0])
         t0 = time.perf_counter()
+        shared = dict(devices=self.devices, chunk=self.chunk,
+                      overlap=self.overlap, supervisor=self.supervisor,
+                      chaos=self.chaos)
         if self.policy is None:
+            shared.update(sharing=self.sharing, cell_size=self.cell_size,
+                          obs_mask=self._obs_mask)
+        if self.resilience is not None:
+            from repro_torch.core.resilience import empty_health_counters, \
+                health_counters, init_fleet_health_state, \
+                merge_health_counters
+            if self._health is None:
+                self._health = init_fleet_health_state(
+                    self.agent.states, len(self.envs), self.resilience)
+            trace, self._health = run_fleet_episode_scan(
+                self.envs, self.agent, self.scalarizers, self._cur_metrics,
+                steps, learn=True, resilience=self.resilience,
+                health=self._health, **shared)
+            self.health_events = np.concatenate(
+                [self.health_events, trace.health_events], axis=1)
+            self._health_counters = [
+                merge_health_counters(c, health_counters(
+                    trace.health_events[i]))
+                for i, c in enumerate(self._health_counters
+                                      or [empty_health_counters()
+                                          for _ in self.envs])]
+        elif self.policy is None:
             trace = run_fleet_episode_scan(
                 self.envs, self.agent, self.scalarizers, self._cur_metrics,
-                steps, learn=True, devices=self.devices, chunk=self.chunk,
-                overlap=self.overlap)
+                steps, learn=True, **shared)
         else:
             from repro_torch.core.guardrails import empty_counters, \
                 guardrail_counters, init_fleet_guard_state, merge_counters
@@ -658,8 +729,8 @@ class FleetTuner:
                      zip(self.scalarizers, self._cur_metrics)])
             trace, self._guard = run_fleet_episode_scan(
                 self.envs, self.agent, self.scalarizers, self._cur_metrics,
-                steps, learn=True, devices=self.devices, chunk=self.chunk,
-                overlap=self.overlap, policy=self.policy, guard=self._guard)
+                steps, learn=True, policy=self.policy, guard=self._guard,
+                **shared)
             self.guard_events = np.concatenate(
                 [self.guard_events, trace.guard_events], axis=1)
             self.shadow_objectives = np.concatenate(
@@ -678,7 +749,8 @@ class FleetTuner:
                 self.envs[i], trace, i, start=start, per_step=per_step,
                 prev_config=self._cur_configs[i],
                 best_objective=self.best_objectives[i],
-                restart_seconds=float(self.simulated_restart_seconds[i]))
+                restart_seconds=float(self.simulated_restart_seconds[i]),
+                finite_baseline=self.resilience is not None)
             self.histories[i].extend(rep["records"])
             self.simulated_restart_seconds[i] = rep["restart_seconds"]
             if rep["best"] is not None:
@@ -760,9 +832,16 @@ class FleetTuner:
                                space=self.envs[i].param_space)
 
     def health_stats(self, i: int) -> Optional[dict]:
-        """Session ``i``'s health record: None, resilience being ROADMAP
-        item A10b."""
-        return None
+        """Session ``i``'s exported health record (None when off)."""
+        if self.resilience is None:
+            return None
+        from repro_torch.core.resilience import empty_health_counters, \
+            health_row, health_stats
+        health_i = (health_row(self._health, i)
+                    if self._health is not None else None)
+        counters = (self._health_counters[i] if self._health_counters
+                    else empty_health_counters())
+        return health_stats(self.resilience, health_i, counters)
 
     def _finish(self, t_wall: float) -> FleetResult:
         """The final recommendation of every session, by the rule of
@@ -801,6 +880,7 @@ class FleetTuner:
                     self.simulated_restart_seconds[i]),
                 wall_seconds=wall,
                 guardrail_stats=self.guardrail_stats(i),
+                health_stats=self.health_stats(i),
             ))
         return FleetResult(results=results, labels=list(self.labels),
                            wall_seconds=wall)
@@ -810,7 +890,7 @@ def memory_plan(cfg: DDPGConfig, space, *, sessions: int, steps: int,
                 chunk: Optional[int] = None, capacity: int = 64,
                 replay_dtype=torch.float32,
                 env_state_bytes_per_session: int = 0,
-                n_samples: int = 12) -> dict:
+                n_samples: int = 12, cell_size: int = 1) -> dict:
     """Bytes-per-session capacity accounting for the chunked fleet runtime,
     from the shapes the port allocates:
 
@@ -818,7 +898,10 @@ def memory_plan(cfg: DDPGConfig, space, *, sessions: int, steps: int,
         vector (online + target actor and critic, both Adam moment sets)
         and the int32 Adam counts (2) and step;
       * ``replay_bytes`` — the float32 window, ``capacity x (2 k + m +
-        1)`` floats;
+        1)`` floats; ``cell_size > 1`` models MERGED cell windows (shared
+        replay): a cell of k sessions keeps one window, so the bytes per
+        session divide by k (floor division, as the live accounting
+        ``buffer.nbytes // sessions``);
       * ``staged_bytes`` — what else a session stages to the card per
         chunk: its env state, replay cursors (2 int32), learner key (2
         int64), state vector and objective, scalarization weights and
@@ -853,8 +936,12 @@ def memory_plan(cfg: DDPGConfig, space, *, sessions: int, steps: int,
             f"replay storage in {replay_dtype} is ROADMAP item A7b")
     k, m = cfg.state_dim, cfg.action_dim
     u, b = cfg.updates_per_step, cfg.batch_size
+    if cell_size > 1 and sessions % cell_size != 0:
+        raise ValueError(
+            f"merged cell buffers need whole cells: {sessions} sessions is "
+            f"not a multiple of cell_size={cell_size}")
     learner_bytes = 4 * state_layout(cfg).floats + 4 * 2 + 4
-    replay_bytes = 4 * capacity * (2 * k + m + 1)
+    replay_bytes = 4 * capacity * (2 * k + m + 1) // cell_size
     staged_bytes = (env_state_bytes_per_session + 4 * 2 + 8 * 2 + 4 * k + 4
                     + 4 * 3 * k + 4 * 14)
     exploration_bytes_per_step = 1 + 2 * 4 * m
@@ -871,6 +958,7 @@ def memory_plan(cfg: DDPGConfig, space, *, sessions: int, steps: int,
         "chunk": c,
         "steps": steps,
         "capacity": capacity,
+        "cell_size": cell_size,
         "replay_dtype": "float32",
         "per_session": {
             "learner_bytes": learner_bytes,

@@ -39,12 +39,20 @@ learners of a boundary's joiners are drawn there too, by ``fleet_init``
 (elementwise in each session's key). No chunk is padded to the lease
 width: a launch takes any number of sessions.
 
-``policy`` (a ``core.guardrails.DeploymentPolicy``) guards every session:
-a session's ``GuardState`` is initialized when its boundary evaluates its
-default configuration, rides each leased chunk of the guarded per-step
-body, and goes into checkpoints with the policy. The other policy layers
-(``sharing``, ``cell_size > 1``, ``resilience``, ``supervisor``,
-``chaos``) are ROADMAP item A10b and raise ``NotImplementedError``.
+The policy layers run each leased chunk through the per-step body, and go
+into checkpoints with their state. ``policy`` (a ``core.guardrails.
+DeploymentPolicy``) guards every session: a session's ``GuardState`` is
+initialized when its boundary evaluates its default configuration.
+``resilience`` (a ``core.resilience.ResiliencePolicy``) heals every
+session: its ``HealthState`` starts at the boundary that admits it.
+``supervisor`` (a ``core.resilience.ChunkSupervisor``, with ``chaos``, an
+``envs.faults.HostChaos``) supervises the chunk stream; ``advance`` forces
+``on_failure="skip"``, and a chunk that stays dead has its sessions
+quarantined through the leave path at the next boundary. ``sharing`` (a
+``core.sharing.SharingConfig``) with a cell mode binds sessions of one
+workload x objective into cells of ``cell_size`` seats at the boundaries;
+a cell's merged window and averaging clock live with the cell and die with
+its last member; its observation scopes mask the learners' view.
 """
 
 from __future__ import annotations
@@ -73,17 +81,16 @@ from repro_torch.core.ddpg import (
 )
 from repro_torch.core.episode import (
     BufferState,
-    check_guard_composition,
     _host_copy,
     _stacked,
     check_fleet_envs,
     draw_exploration,
+    resolve_layers,
     stream_fleet_episode,
 )
 from repro_torch.core.fleet import (
     evaluate_fleet,
     recommend_final_fleet,
-    refuse_policy_layers,
     replay_compact_trace,
 )
 from repro_torch.core.scalarization import Scalarizer, normalize_state
@@ -125,6 +132,9 @@ class _Session:
     # guardrails (service-wide policy; None when guardrails are off)
     guard: object = None        # core.guardrails.GuardState, numpy leaves
     guard_counters: Optional[dict] = None
+    # resilience (service-wide policy; None when resilience is off)
+    health: object = None       # core.resilience.HealthState
+    health_counters: Optional[dict] = None
 
 
 class FleetService:
@@ -154,8 +164,14 @@ class FleetService:
     ``policy`` (``core.guardrails.DeploymentPolicy``) guards every session;
     ``guardrail_stats(sid)``, ``last_stats["guardrails"]`` (the advance's
     counters summed over its sessions) and each departed session's
-    ``TuningResult.guardrail_stats`` report it. ``policy=None`` is bitwise
-    the unguarded service.
+    ``TuningResult.guardrail_stats`` report it. ``resilience`` heals every
+    session (``health_stats(sid)``, ``TuningResult.health_stats``);
+    ``supervisor`` and ``chaos`` supervise the chunk stream, and
+    ``last_stats`` then holds ``supervisor`` and ``quarantined`` (the sids
+    of chunks that stayed dead, which leave at the next boundary);
+    ``sharing`` with ``cell_size`` runs cells (``chunk`` must be a multiple
+    of ``cell_size``, so cells never span chunks). With every layer off the
+    service runs the episode kernel, bitwise the service without them.
     """
 
     def __init__(self, *, chunk: int, env_factory=None, env_cls=None,
@@ -166,13 +182,17 @@ class FleetService:
                  policy=None, sharing=None, cell_size: int = 1,
                  resilience=None, supervisor=None, chaos=None,
                  device=None):
-        check_guard_composition(policy, sharing=sharing,
-                                resilience=resilience)
-        refuse_policy_layers("FleetService", cell_size, sharing=sharing,
-                             resilience=resilience, supervisor=supervisor,
-                             chaos=chaos)
         if chunk <= 0:
             raise ValueError(f"chunk must be positive, got {chunk}")
+        layers = resolve_layers(policy, resilience, None, sharing,
+                                cell_size)
+        if supervisor is not None:
+            from repro_torch.core.resilience import normalize_supervisor
+            supervisor = normalize_supervisor(supervisor)
+        if layers.cells and chunk % layers.cell_size != 0:
+            raise ValueError(
+                f"chunk ({chunk}) must be a multiple of cell_size "
+                f"({layers.cell_size}) so cells never span chunk programs")
         if env_factory is not None and env_cls is not None:
             raise ValueError("pass env_factory OR env_cls, not both")
         self.device = resolve_device(device)
@@ -193,6 +213,17 @@ class FleetService:
         self.checkpoint_dir = checkpoint_dir
         self.keep = keep
         self.policy = policy
+        self.resilience = layers.resilience
+        # a chunk that keeps failing is skipped, and its sessions leave at
+        # the next boundary (advance forces on_failure="skip")
+        self.supervisor = supervisor
+        self.chaos = chaos
+        self.sharing = layers.sharing
+        self.cell_size = layers.cell_size
+        self._layers = layers
+        self._cells: dict = {}      # cell id -> {key, seats, steps, buf}
+        self._next_cell = 0
+        self._obs_mask = None       # resolved from the first env
         self.total_steps = 0
         self._slots: list = []          # slot index -> sid or None (leases)
         self._sessions: dict = {}       # sid -> _Session (leased only)
@@ -255,12 +286,19 @@ class FleetService:
             raise KeyError(f"session {sid} is not active")
         return self._session_guardrail_stats(self._sessions[sid])
 
+    def _session_health_stats(self, sess: _Session) -> Optional[dict]:
+        if self.resilience is None:
+            return None
+        from repro_torch.core.resilience import empty_health_counters, \
+            health_stats
+        return health_stats(self.resilience, sess.health,
+                            sess.health_counters or empty_health_counters())
+
     def health_stats(self, sid: int) -> Optional[dict]:
-        """An active session's health record: None, resilience being
-        ROADMAP item A10b."""
+        """An ACTIVE session's health record (None when off)."""
         if sid not in self._sessions:
             raise KeyError(f"session {sid} is not active")
-        return None
+        return self._session_health_stats(self._sessions[sid])
 
     # -- session construction ------------------------------------------------
 
@@ -294,12 +332,17 @@ class FleetService:
     def _draw_learners(self, sessions: Sequence[_Session]) -> None:
         """The learners of ``sessions``: ``fleet_init`` on the CPU, a lease
         width of keys at a time, as a host-store ``FleetAgent`` draws
-        them."""
+        them; with resilience each session's health state starts here, on
+        its fresh learner."""
         keys = torch.stack([jrandom.PRNGKey(s.seed) for s in sessions])
         for i in range(0, len(sessions), self.chunk):
             part = fleet_init(keys[i:i + self.chunk], self.cfg, "cpu")
             for j, s in enumerate(sessions[i:i + self.chunk]):
                 s.ddpg = DDPGState(*(x[j] for x in part))
+        if self.resilience is not None:
+            from repro_torch.core.resilience import init_health_state
+            for s in sessions:
+                s.health = init_health_state(s.ddpg, self.resilience)
 
     def _evaluate_defaults(self, sessions: Sequence[_Session]) -> None:
         """The default configurations of ``sessions``, evaluated in one
@@ -354,9 +397,60 @@ class FleetService:
                 self._slots.append(sess.sid)
             self._sessions[sess.sid] = sess
         self._join_queue = []
+        if self._layers.cells:
+            self._bind_cells()
         return {"join_learners": t_learners - t0,
                 "join_evaluations": t1 - t_learners,
                 "leave_finalizations": t2 - t1}
+
+    # -- cell topology (experience sharing) ----------------------------------
+
+    @staticmethod
+    def _cell_key(sess: _Session) -> tuple:
+        return (sess.workload, tuple(sorted(sess.weights.items())))
+
+    def _new_cell_buf(self) -> dict:
+        cap, k, m = self.buffer_capacity, self.cfg.state_dim, \
+            self.cfg.action_dim
+        return {"s": torch.zeros((cap, k)), "a": torch.zeros((cap, m)),
+                "r": torch.zeros((cap,)), "s2": torch.zeros((cap, k)),
+                "next": 0, "size": 0}
+
+    def _bind_cells(self) -> None:
+        """Re-bind cell membership at a boundary (cell modes only).
+
+        A cell is ``cell_size`` seats keyed by (workload, objective):
+        departing sessions free their seat, joining sessions take the
+        lowest free seat of the lowest matching cell (or found a new cell).
+        Seats, not slots, fix a member's lane in the cell body, so the
+        surviving members keep their lanes across churn. A cell whose last
+        member leaves is dropped WITH its merged window: experience belongs
+        to the tenants that made it."""
+        for cid in sorted(self._cells):
+            rec = self._cells[cid]
+            rec["seats"] = [sid if sid in self._sessions else None
+                            for sid in rec["seats"]]
+            if all(sid is None for sid in rec["seats"]):
+                del self._cells[cid]
+        seated = {sid for rec in self._cells.values()
+                  for sid in rec["seats"] if sid is not None}
+        for sid in sorted(self._sessions):  # sid order: deterministic
+            if sid in seated:
+                continue
+            key = self._cell_key(self._sessions[sid])
+            for cid in sorted(self._cells):
+                rec = self._cells[cid]
+                if rec["key"] == key and None in rec["seats"]:
+                    rec["seats"][rec["seats"].index(None)] = sid
+                    break
+            else:
+                buf = (self._new_cell_buf()
+                       if self.sharing.shared_replay else None)
+                self._cells[self._next_cell] = {
+                    "key": key,
+                    "seats": [sid] + [None] * (self.cell_size - 1),
+                    "steps": 0, "buf": buf}
+                self._next_cell += 1
 
     def _finalize(self, sessions: Sequence[_Session]) -> None:
         """The §III-E final recommendation of departing sessions, batched as
@@ -392,7 +486,8 @@ class FleetService:
                 history=list(s.history),
                 simulated_restart_seconds=float(s.restart_seconds),
                 wall_seconds=now - s.joined_at,
-                guardrail_stats=self._session_guardrail_stats(s))
+                guardrail_stats=self._session_guardrail_stats(s),
+                health_stats=self._session_health_stats(s))
 
     # -- the serving loop ----------------------------------------------------
 
@@ -407,8 +502,12 @@ class FleetService:
         ``padded_sessions`` (0), ``peak_device_bytes``,
         ``session_steps_per_sec``, ``launch_device_seconds`` (CUDA events on
         the card; empty on the CPU), ``staging`` (``stream_chunks``'s
-        measurements) and, with a policy, ``guardrails`` (this advance's
-        counters summed over its sessions)."""
+        measurements), ``cell_size`` and ``sharing``; with a policy,
+        ``guardrails`` (this advance's counters summed over its sessions);
+        with a supervisor, ``supervisor`` (its stats) and ``quarantined``
+        (the sids of the chunks it skipped: they keep their state from
+        before the advance and leave at the next boundary, the survivors'
+        bits as they were)."""
         boundary = self._apply_requests()
         order = [sid for sid in self._slots if sid is not None]
         self.last_stats = {"boundary_seconds": boundary,
@@ -416,55 +515,139 @@ class FleetService:
                            "num_chunks": 0}
         if not order or steps <= 0:
             return []
-        self._advance_sessions([self._sessions[sid] for sid in order],
-                               steps)
+        quarantined = self._advance_sessions(
+            [self._sessions[sid] for sid in order], steps)
         self.total_steps += steps
+        for sid in quarantined:
+            self.request_leave(sid)
         return order
 
+    def _rows(self, sessions: Sequence[_Session]) -> tuple:
+        """The rows the episode runs and whether each is a session's own
+        (primary): ``sessions`` in slot order, or with cells the cells'
+        seats in cell order, a vacant seat riding as an inactive replica of
+        its cell's first live member (it computes, but never writes to the
+        merged window, weighs nothing in the mean, and its results are
+        discarded), so a ragged cell runs as a full one."""
+        if not self._layers.cells:
+            return list(sessions), [True] * len(sessions), []
+        rows, primary, row_cells = [], [], []
+        for cid in sorted(self._cells):
+            rec = self._cells[cid]
+            live = [sid for sid in rec["seats"] if sid is not None]
+            for sid in rec["seats"]:
+                rows.append(self._sessions[live[0] if sid is None else sid])
+                primary.append(sid is not None)
+                row_cells.append(cid)
+        return rows, primary, row_cells
+
     def _advance_sessions(self, sessions: Sequence[_Session],
-                          steps: int) -> None:
+                          steps: int) -> list:
         """One ``steps``-long episode segment of ``sessions`` (slot order)
         through ``stream_fleet_episode``: each session's exploration drawn
-        at its own age, its window with its own FIFO cursor; then each
-        session's state written back and its history rebuilt from the
-        compact trace (``replay_compact_trace``)."""
+        at its own age, its window with its own FIFO cursor (with shared
+        replay, its cell's); then each session's state written back and
+        its history rebuilt from the compact trace
+        (``replay_compact_trace``). Returns the sids to quarantine: the
+        sessions of chunks the supervisor skipped, whose state stays as it
+        was before the advance."""
         t0 = time.perf_counter()
-        envs = [s.env for s in sessions]
-        check_fleet_envs(envs, self.device)
+        layers = self._layers
+        check_fleet_envs([s.env for s in sessions], self.device)
         pin = self.device.type == "cuda"
-        exploration = []
+        exploration = {}
         for s in sessions:
-            exploration.append(draw_exploration(
+            exploration[s.sid] = draw_exploration(
                 s.warmup_plan, s.noise, s.steps_taken, self.warmup_steps,
-                steps))
+                steps)
             s.steps_taken += steps
-        ddpg = DDPGState(*(_stacked([getattr(s.ddpg, f) for s in sessions],
+        rows, primary, row_cells = self._rows(sessions)
+        n = len(rows)
+        if self.sharing is not None and \
+                self.sharing.observation_scopes is not None and \
+                self._obs_mask is None:
+            from repro_torch.core.sharing import resolve_obs_mask
+            env0 = rows[0].env
+            self._obs_mask = resolve_obs_mask(
+                self.sharing, env0.metric_specs, env0.state_metrics)
+        ddpg = DDPGState(*(_stacked([getattr(s.ddpg, f) for s in rows],
                                     pin) for f in DDPGState._fields))
+        owners = ([self._cells[cid]["buf"] for cid in sorted(self._cells)]
+                  if layers.shared_replay else [s.buf for s in rows])
         buffer = BufferState(
-            *(_stacked([s.buf[key] for s in sessions], pin)
-              for key in _WINDOW),
-            *(_host_copy(np.array([s.buf[key] for s in sessions], np.int32),
+            *(_stacked([b[key] for b in owners], pin) for key in _WINDOW),
+            *(_host_copy(np.array([b[key] for b in owners], np.int32),
                          pin) for key in ("next", "size")))
-        learn_keys = _stacked([s.learn_key for s in sessions], pin)
-        guard = None
+        learn_keys = _stacked([s.learn_key for s in rows], pin)
+        cells = None
+        if layers.cells:
+            # the averaging cadence fires on each CELL's own step clock,
+            # whatever its members' ages
+            avg_now = np.zeros((n, steps), bool)
+            if self.sharing.averaging:
+                every = self.sharing.avg_every
+                for j, cid in enumerate(row_cells):
+                    avg_now[j] = ((self._cells[cid]["steps"]
+                                   + np.arange(steps) + 1) % every) == 0
+            cells = (avg_now, np.broadcast_to(
+                np.asarray(primary, bool)[:, None], (n, steps)))
+        guard = health = None
         if self.policy is not None:
             from repro_torch.core.guardrails import empty_counters, \
                 guard_row, guard_to_numpy, guard_to_torch, \
                 guardrail_counters, merge_counters, stack_guards
-            guard = guard_to_torch(stack_guards([s.guard for s in sessions]),
+            guard = guard_to_torch(stack_guards([s.guard for s in rows]),
                                    pin=pin)
             round_counters = empty_counters()
+        if self.resilience is not None:
+            from repro_torch.core.resilience import empty_health_counters, \
+                health_counters, health_row, health_to_numpy, \
+                health_to_torch, merge_health_counters, stack_health
+            health = health_to_torch(stack_health([s.health for s in rows]),
+                                     pin=pin)
+        sup = self.supervisor
+        if sup is not None and sup.on_failure != "skip":
+            # a persistent service survives a dead chunk: quarantine, never
+            # crash
+            sup = sup._replace(on_failure="skip")
         trace, stats = stream_fleet_episode(
-            envs, [s.scalarizer for s in sessions],
-            [s.cur_metrics for s in sessions], exploration, ddpg, buffer,
-            learn_keys, cfg=self.cfg, steps=steps, chunk=self.chunk,
+            [s.env for s in rows], [s.scalarizer for s in rows],
+            [s.cur_metrics for s in rows],
+            [exploration[s.sid] for s in rows], ddpg, buffer, learn_keys,
+            cfg=self.cfg, steps=steps, chunk=self.chunk,
             overlap=self.overlap, device=self.device, policy=self.policy,
-            guard=guard)
+            guard=guard, resilience=self.resilience, health=health,
+            obs_mask=self._obs_mask, sharing=self.sharing,
+            cell_size=self.cell_size, cells=cells, supervisor=sup,
+            chaos=self.chaos, primary=primary)
         wall = time.perf_counter() - t0
         per_step = wall / max(1, steps)
+        failed_rows: set = set()
+        quarantined: list = []
+        if "supervisor" in stats:
+            c = stats["chunk"]
+            for ci in stats["supervisor"]["failed_chunks"]:
+                failed_rows.update(range(ci * c, min(n, (ci + 1) * c)))
+            quarantined = sorted({rows[j].sid for j in failed_rows
+                                  if primary[j]})
+        if layers.shared_replay:
+            for g, cid in enumerate(sorted(self._cells)):
+                cb = self._cells[cid]["buf"]
+                for key, x in zip(_WINDOW, buffer):
+                    cb[key] = x[g]
+                cb["next"] = int(buffer.next_slot[g])
+                cb["size"] = int(buffer.size[g])
+        for cid in self._cells:
+            self._cells[cid]["steps"] += steps
         if guard is not None:
             guard = guard_to_numpy(guard)
-        for j, s in enumerate(sessions):
+        if health is not None:
+            health = health_to_numpy(health)
+        for j, s in enumerate(rows):
+            if not primary[j] or j in failed_rows:
+                # a vacant seat's replica, or a skipped chunk's row whose
+                # drain never ran: nothing to write back
+                continue
             if guard is not None:
                 s.guard = guard_row(guard, j)
                 delta = guardrail_counters(trace.guard_events[j],
@@ -472,16 +655,23 @@ class FleetService:
                 s.guard_counters = merge_counters(
                     s.guard_counters or empty_counters(), delta)
                 round_counters = merge_counters(round_counters, delta)
+            if health is not None:
+                s.health = health_row(health, j)
+                s.health_counters = merge_health_counters(
+                    s.health_counters or empty_health_counters(),
+                    health_counters(trace.health_events[j]))
             s.ddpg = DDPGState(*(x[j] for x in ddpg))
-            for key, x in zip(_WINDOW, buffer):
-                s.buf[key] = x[j]
-            s.buf["next"] = int(buffer.next_slot[j])
-            s.buf["size"] = int(buffer.size[j])
+            if not layers.shared_replay:
+                for key, x in zip(_WINDOW, buffer):
+                    s.buf[key] = x[j]
+                s.buf["next"] = int(buffer.next_slot[j])
+                s.buf["size"] = int(buffer.size[j])
             s.learn_key = learn_keys[j]
             rep = replay_compact_trace(
                 s.env, trace, j, start=len(s.history), per_step=per_step,
                 prev_config=s.cur_config, best_objective=s.best_objective,
-                restart_seconds=s.restart_seconds)
+                restart_seconds=s.restart_seconds,
+                finite_baseline=self.resilience is not None)
             s.history.extend(rep["records"])
             s.restart_seconds = rep["restart_seconds"]
             if rep["best"] is not None:
@@ -497,9 +687,14 @@ class FleetService:
             peak_device_bytes=stats["peak_device_bytes"],
             session_steps_per_sec=len(sessions) * steps / max(wall, 1e-9),
             launch_device_seconds=stats["launch_device_seconds"],
-            staging=stats["staging"])
+            staging=stats["staging"], cell_size=self.cell_size,
+            sharing=self.sharing)
         if guard is not None:
             self.last_stats["guardrails"] = round_counters
+        if "supervisor" in stats:
+            self.last_stats["supervisor"] = stats["supervisor"]
+            self.last_stats["quarantined"] = list(quarantined)
+        return quarantined
 
     # -- checkpoint / restore ------------------------------------------------
 
@@ -520,6 +715,11 @@ class FleetService:
             for name in ("live_action", "fallback_action"):
                 tree[f"guard_{name}"] = torch.from_numpy(
                     np.array(getattr(s.guard, name), np.float32))
+        if s.health is not None and len(s.health.snapshot):
+            # the last-good learner: a resumed session resets to the SAME
+            # state
+            tree["health_snapshot"] = DDPGState(
+                *(x.clone() for x in s.health.snapshot))
         return tree
 
     def checkpoint(self, directory: Optional[str] = None) -> str:
@@ -545,10 +745,34 @@ class FleetService:
             "next_sid": self._next_sid,
             "policy": (dict(self.policy._asdict())
                        if self.policy is not None else None),
+            "resilience": (dict(self.resilience._asdict())
+                           if self.resilience is not None else None),
+            "supervisor": (dict(self.supervisor._asdict())
+                           if self.supervisor is not None else None),
+            "sharing": (dict(self.sharing._asdict())
+                        if self.sharing is not None else None),
+            "cell_size": self.cell_size, "next_cell": self._next_cell,
+            # the cell topology: key and seat order are durable state, a
+            # member's lane in the cell body must survive a resume
+            "cells": {str(cid): {
+                "workload": rec["key"][0],
+                "weights": [[k, v] for k, v in rec["key"][1]],
+                "seats": [(-1 if sid is None else sid)
+                          for sid in rec["seats"]],
+                "steps": rec["steps"],
+                "buf_next": (rec["buf"]["next"]
+                             if rec["buf"] is not None else -1),
+                "buf_size": (rec["buf"]["size"]
+                             if rec["buf"] is not None else -1),
+            } for cid, rec in self._cells.items()},
             "slots": [(-1 if s is None else s) for s in self._slots],
             "cfg": ({**self.cfg._asdict(), "hidden": list(self.cfg.hidden)}
                     if self.cfg is not None else None),
             "sessions": {}}
+        tree["cells"] = {str(cid): {key: rec["buf"][key].clone()
+                                    for key in _WINDOW}
+                         for cid, rec in self._cells.items()
+                         if rec["buf"] is not None}
         for sid, s in self._sessions.items():
             tree["sessions"][str(sid)] = self._tree(s)
             nd = s.noise.state_dict()
@@ -578,6 +802,14 @@ class FleetService:
                     "rollbacks": int(s.guard.rollbacks),
                     "counters": dict(s.guard_counters or {}),
                 }
+            if s.health is not None:
+                extra["sessions"][str(sid)]["health"] = {
+                    "resets": int(s.health.resets),
+                    "nonfinite": int(s.health.nonfinite),
+                    "degraded": bool(s.health.degraded),
+                    "since_snap": int(s.health.since_snap),
+                    "counters": dict(s.health_counters or {}),
+                }
         return save_checkpoint(directory, self.total_steps, tree,
                                keep=self.keep, extra=extra)
 
@@ -597,9 +829,12 @@ class FleetService:
 
         ``fallback=True`` survives a corrupted newest checkpoint by walking
         the keep-k history to the newest verifiable step (the restored
-        service's ``total_steps`` says how far back it reached). A guarded
-        service comes back with its policy and every session's guard and
-        counters."""
+        service's ``total_steps`` says how far back it reached). The
+        service comes back with its layers: the policy and every session's
+        guard and counters, the resilience policy and every session's
+        health state (its snapshot included), the supervisor, and the
+        sharing config with its cells (their seats, clocks and merged
+        windows). Chaos is a test's plan and is not stored."""
         step, flat, extra = restore_checkpoint(directory, step,
                                                fallback=fallback)
         cfg = None
@@ -607,26 +842,58 @@ class FleetService:
             cfg_d = dict(extra["cfg"])
             cfg_d["hidden"] = tuple(cfg_d["hidden"])
             cfg = DDPGConfig(**cfg_d)
-        policy = None
+        policy = resilience = supervisor = sharing = None
         if extra.get("policy") is not None:
             from repro_torch.core.guardrails import DeploymentPolicy, \
                 GuardState, init_guard_state
             policy = DeploymentPolicy(**extra["policy"])
+        if extra.get("resilience") is not None:
+            from repro_torch.core.resilience import HealthState, \
+                ResiliencePolicy, init_health_state
+            resilience = ResiliencePolicy(**extra["resilience"])
+        if extra.get("supervisor") is not None:
+            from repro_torch.core.resilience import ChunkSupervisor
+            supervisor = ChunkSupervisor(**extra["supervisor"])
+        if extra.get("sharing") is not None:
+            from repro_torch.core.sharing import SharingConfig
+            sh = dict(extra["sharing"])
+            if sh.get("observation_scopes") is not None:
+                sh["observation_scopes"] = tuple(sh["observation_scopes"])
+            sharing = SharingConfig(**sh)
         svc = cls(chunk=extra["chunk"], env_factory=env_factory,
                   env_cls=env_cls, ddpg_config=cfg,
                   buffer_capacity=extra["buffer_capacity"],
                   warmup_steps=extra["warmup_steps"],
                   eval_runs=extra["eval_runs"], overlap=extra["overlap"],
                   checkpoint_dir=directory, keep=extra["keep"],
-                  policy=policy, device=device)
+                  policy=policy, sharing=sharing,
+                  cell_size=extra.get("cell_size", 1),
+                  resilience=resilience, supervisor=supervisor,
+                  device=device)
         svc.total_steps = extra["total_steps"]
         svc._next_sid = extra["next_sid"]
         svc._slots = [None if s < 0 else int(s) for s in extra["slots"]]
+        svc._next_cell = extra.get("next_cell", 0)
         layout = state_layout(svc.cfg) if svc.cfg is not None else None
-        leaves: dict = {}  # sid -> the session's flat tensors
+        leaves: dict = {}  # (sessions | cells, id) -> its flat tensors
         for key, v in flat.items():
-            _, sid_s, leaf = key.split("/", 2)
-            leaves.setdefault(sid_s, {})[leaf] = v
+            top, id_s, leaf = key.split("/", 2)
+            leaves.setdefault((top, id_s), {})[leaf] = v
+        for cid_s, cm in extra.get("cells", {}).items():
+            buf = None
+            if cm["buf_next"] >= 0:
+                buf = svc._new_cell_buf()
+                restored = restore_into({key: buf[key] for key in _WINDOW},
+                                        leaves.get(("cells", cid_s), {}))
+                buf.update(restored)
+                buf["next"] = int(cm["buf_next"])
+                buf["size"] = int(cm["buf_size"])
+            svc._cells[int(cid_s)] = {
+                "key": (cm["workload"],
+                        tuple((k, v) for k, v in cm["weights"])),
+                "seats": [None if sid < 0 else int(sid)
+                          for sid in cm["seats"]],
+                "steps": int(cm["steps"]), "buf": buf}
         for sid_s, meta in extra["sessions"].items():
             sid = int(sid_s)
             s = svc._new_session(sid, meta["workload"], dict(meta["weights"]),
@@ -637,7 +904,10 @@ class FleetService:
             if policy is not None:  # the template's guard leaves
                 s.guard = init_guard_state(s.env.param_space,
                                            s.default_config, 0.0)
-            restored = restore_into(svc._tree(s), leaves.get(sid_s, {}))
+            if resilience is not None:  # the template's snapshot
+                s.health = init_health_state(s.ddpg, svc.resilience)
+            restored = restore_into(svc._tree(s),
+                                    leaves.get(("sessions", sid_s), {}))
             if not torch.equal(restored["env_params"],
                                s.env.params.vector()):
                 raise ValueError(
@@ -678,6 +948,15 @@ class FleetService:
                     promotions=np.int32(gm["promotions"]),
                     rollbacks=np.int32(gm["rollbacks"]))
                 s.guard_counters = dict(gm["counters"])
+            if resilience is not None:
+                hm = meta["health"]
+                s.health = HealthState(
+                    snapshot=restored.get("health_snapshot", ()),
+                    resets=np.int32(hm["resets"]),
+                    nonfinite=np.int32(hm["nonfinite"]),
+                    degraded=np.bool_(hm["degraded"]),
+                    since_snap=np.int32(hm["since_snap"]))
+                s.health_counters = dict(hm["counters"])
             svc._sessions[sid] = s
         return svc
 

@@ -20,8 +20,11 @@ the CPU its plain PyTorch version. ``policy`` (a
 ``core.guardrails.DeploymentPolicy``) turns on the deployment guardrails:
 each ``run()`` then runs the guarded per-step body
 (``core.episode.stepwise_episode``), one launch of the CUDA learner
-``kernels/csrc/ddpg_learn.cu`` a step. The other layers the reference runs
-inside the episode (resilience, observation scopes) are ROADMAP item A10b.
+``kernels/csrc/ddpg_learn.cu`` a step. So do the other layers the
+reference runs inside the episode: ``resilience`` (a
+``core.resilience.ResiliencePolicy``: snapshot, reset and degrade) and
+``observation_scopes`` (the learner sees only the metrics of those
+scopes).
 
 The final recommendation is the best configuration *seen* during tuning
 (§III-E: 'it recommends the best it has seen so far'), evaluated with
@@ -38,7 +41,6 @@ import numpy as np
 
 from repro_torch.core.agent import MagpieAgent
 from repro_torch.core.ddpg import DDPGConfig
-from repro_torch.core.episode import check_guard_composition
 from repro_torch.core.scalarization import Scalarizer, normalize_state
 
 
@@ -103,6 +105,9 @@ class TuningResult:
     #: promotion/rollback counters and restart-budget accounting; None when
     #: guardrails are off
     guardrail_stats: Optional[dict] = None
+    #: resilient sessions only (core.resilience): the policy, cumulative
+    #: non-finite/reset counters and the degraded flag; None when off
+    health_stats: Optional[dict] = None
 
     def gain(self, metric: str) -> float:
         """Proportional raw-metric gain of best vs default (paper's reported %)."""
@@ -130,9 +135,18 @@ class Tuner:
         gate and rolled back on regression. Scan engine only; the guard
         persists across progressive ``run()`` calls. ``policy=None`` runs
         the episode kernel, bitwise the unguarded tuner.
-        ``observation_scopes`` and ``resilience`` belong to the reference's
-        masked and self-healing episode bodies and raise
-        ``NotImplementedError`` here (ROADMAP A10b)."""
+
+        ``resilience`` (``core.resilience.ResiliencePolicy``) turns on the
+        self-healing body: a non-finite reading, learner or loss resets the
+        session to its last-good snapshot, and past ``max_resets`` it
+        degrades to a frozen incumbent; ``health_events`` and
+        ``TuningResult.health_stats`` report it, and the health state
+        persists across ``run()`` calls. ``observation_scopes`` (a tuple of
+        metric scopes, e.g. ``("OSC",)``) masks the learner's view to the
+        metrics of those scopes (``envs.metrics.scope_mask``); the reward
+        and objective still read the whole state. Both run the per-step
+        body, scan engine only, and neither composes with ``policy``
+        (the reference's ``ValueError``s)."""
         if engine not in ("host", "scan"):
             raise ValueError(f"unknown engine {engine!r}; use 'host' or 'scan'")
         if engine == "scan" and getattr(env, "model", None) is None:
@@ -143,18 +157,40 @@ class Tuner:
             raise ValueError(
                 "DeploymentPolicy guardrails run inside the episode; use "
                 "engine='scan' (the host loop has no shadow/canary body)")
-        check_guard_composition(policy, observation_scopes=observation_scopes,
-                                resilience=resilience)
-        for name, value in (("observation_scopes", observation_scopes),
-                            ("resilience", resilience)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Tuner({name}) runs inside the reference's masked or "
-                    f"resilient episode body, ROADMAP item A10b, not yet in "
-                    f"repro_torch")
+        if observation_scopes is not None and engine != "scan":
+            raise ValueError(
+                "observation_scopes masks the actor input inside the episode "
+                "scan; use engine='scan'")
+        if observation_scopes is not None and policy is not None:
+            raise ValueError(
+                "observation_scopes does not compose with DeploymentPolicy "
+                "guardrails; run guarded tuners with full-state observation")
+        if resilience is not None:
+            from repro_torch.core.resilience import normalize_resilience
+            resilience = normalize_resilience(resilience)
+        if resilience is not None and engine != "scan":
+            raise ValueError(
+                "ResiliencePolicy runs inside the episode scan; use "
+                "engine='scan' (the host loop has no snapshot/reset body)")
+        if resilience is not None and policy is not None:
+            raise ValueError(
+                "resilience does not compose with DeploymentPolicy "
+                "guardrails; run guarded tuners without a ResiliencePolicy")
         self.env = env
         self.engine = engine
         self.policy = policy
+        self.resilience = resilience
+        self._health = None  # HealthState, persists across progressive runs
+        self.health_events = np.zeros((0,), np.uint8)
+        self._health_counters: Optional[dict] = None
+        if observation_scopes is None:
+            self._obs_mask = None
+        else:
+            from repro_torch.core.sharing import SharingConfig, \
+                resolve_obs_mask
+            self._obs_mask = resolve_obs_mask(
+                SharingConfig(observation_scopes=tuple(observation_scopes)),
+                env.metric_specs, env.state_metrics)
         self._guard = None  # GuardState, persists across progressive runs
         self.guard_events = np.zeros((0,), np.uint8)
         self.shadow_objectives = np.zeros((0,), np.float32)
@@ -257,9 +293,25 @@ class Tuner:
             self._guard_counters = merge_counters(
                 self._guard_counters or empty_counters(),
                 guardrail_counters(trace.guard_events, trace.restarts))
+        elif self.resilience is not None:
+            from repro_torch.core.resilience import empty_health_counters, \
+                health_counters, init_health_state, merge_health_counters
+            if self._health is None:
+                self._health = init_health_state(self.agent.state,
+                                                 self.resilience)
+            trace, self._health = run_episode_scan(
+                self.env, self.agent, self.scalarizer, self._cur_metrics,
+                steps, learn=learn, obs_mask=self._obs_mask,
+                resilience=self.resilience, health=self._health)
+            self.health_events = np.concatenate(
+                [self.health_events, trace.health_events])
+            self._health_counters = merge_health_counters(
+                self._health_counters or empty_health_counters(),
+                health_counters(trace.health_events))
         else:
             trace = run_episode_scan(self.env, self.agent, self.scalarizer,
-                                     self._cur_metrics, steps, learn=learn)
+                                     self._cur_metrics, steps, learn=learn,
+                                     obs_mask=self._obs_mask)
         per_step = (time.perf_counter() - t0) / max(1, steps)
 
         configs = self.env.param_space.configs_from_indices(trace.action_idx)
@@ -282,7 +334,12 @@ class Tuner:
             ))
             prev_config = configs[t]
             self._cur_config = configs[t]
-            self._cur_metrics = metrics
+            if (self.resilience is None
+                    or bool(np.isfinite(trace.metrics[t]).all())):
+                # as the resilient carry: a corrupted reading is recorded
+                # raw in the history but never becomes the next observation
+                # (nor the final recommendation's actor input)
+                self._cur_metrics = metrics
         self.env._last_config = dict(self._cur_config)
 
     def guardrail_stats(self) -> Optional[dict]:
@@ -296,6 +353,17 @@ class Tuner:
         return guardrail_stats(self.policy, self._guard,
                                self._guard_counters or empty_counters(),
                                space=self.env.param_space)
+
+    def health_stats(self) -> Optional[dict]:
+        """Exported health record (None when resilience is off): the
+        policy, the cumulative non-finite and reset counters, the degraded
+        flag and the carried totals."""
+        if self.resilience is None:
+            return None
+        from repro_torch.core.resilience import empty_health_counters, \
+            health_stats
+        return health_stats(self.resilience, self._health,
+                            self._health_counters or empty_health_counters())
 
     def _finish(self, t_wall: float) -> TuningResult:
         """§III-E final recommendation + result assembly (shared by engines)."""
@@ -318,4 +386,5 @@ class Tuner:
             simulated_restart_seconds=self.simulated_restart_seconds,
             wall_seconds=time.perf_counter() - t_wall,
             guardrail_stats=self.guardrail_stats(),
+            health_stats=self.health_stats(),
         )

@@ -1,6 +1,9 @@
 from repro_torch.envs.base import EnvModel, ModelEnv, TuningEnvironment
 from repro_torch.envs.faults import (
     FAULT_MODES,
+    ChaosConfig,
+    HostChaos,
+    TransientChunkError,
     FaultInjectedModel,
     FaultSpec,
     FaultyEnvState,
@@ -14,6 +17,7 @@ from repro_torch.envs.metrics import (
     MetricsCollector,
     couple_client_knobs,
     lustre_metric_specs,
+    scope_mask,
 )
 from repro_torch.envs.workloads import WORKLOADS, Workload
 from repro_torch.envs.lustre_sim import (
@@ -28,6 +32,7 @@ from repro_torch.envs.lustre_sim import (
 __all__ = [
     "TuningEnvironment", "EnvModel", "ModelEnv", "FAULT_MODES",
     "FaultInjectedModel", "FaultSpec", "FaultyEnvState", "latency_spike",
+    "ChaosConfig", "HostChaos", "TransientChunkError", "scope_mask",
     "metric_dropout", "nan_poison", "throughput_collapse",
     "MetricsCollector", "lustre_metric_specs",
     "LUSTRE_STATE_METRICS", "couple_client_knobs", "WORKLOADS", "Workload",

@@ -22,15 +22,18 @@ The key chain lives in the wrapped model's state: ``key_of`` and
 ``with_key`` reach through ``FaultyEnvState.base``, so the wrapped model's
 draws are those it makes unwrapped.
 
-The reference's host-side chaos (``ChaosConfig``, ``HostChaos``,
-``TransientChunkError``) serves the supervised chunk stream of the
-resilience layer, ROADMAP item A10b.
+``ChaosConfig`` plans faults across both failure domains: a NaN poison
+of one metric inside the episode (``fault_specs()``, for
+``FaultInjectedModel``) and, on the host, transient staging failures and
+stalls of chosen chunks (``host()``, a ``HostChaos`` for the supervised
+chunk stream of ``core.resilience.ChunkSupervisor``).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence
+import time
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,6 +178,84 @@ def metric_dropout(metric: str, start: int, duration: int = 8) -> FaultSpec:
 
 
 def nan_poison(metric: str, start: int, duration: int = 1) -> FaultSpec:
-    """``metric`` reads NaN while active (the resilience layer's divergence
-    trigger, ROADMAP item A10b)."""
+    """``metric`` reads NaN while active: the divergence trigger of the
+    resilience layer (its health check must catch it before the poisoned
+    sample reaches the replay window)."""
     return FaultSpec(metric, start, duration, "nan")
+
+
+# ---------------------------------------------------------------------------
+# Runtime chaos: the fault classes the resilience layer defends against
+# ---------------------------------------------------------------------------
+
+class TransientChunkError(RuntimeError):
+    """A deterministic, injected transient staging failure (the kind a real
+    fleet sees from a flaky device transfer or a preempted host thread).
+    The supervised ``stream_chunks`` retries these; an unsupervised stream
+    propagates them."""
+
+
+class ChaosConfig(NamedTuple):
+    """A declarative chaos plan spanning both failure domains.
+
+    Inside the episode (through ``FaultInjectedModel``):
+      ``nan_metric``    metric name to poison with NaN, or None.
+      ``nan_start``     first tuning step the poison is active.
+      ``nan_duration``  number of poisoned tuning steps.
+
+    On the host (delivered by ``HostChaos.before_chunk``):
+      ``fail_chunks``   ((chunk_index, n_failures), ...): the chunk fails its
+                        first ``n_failures`` stage attempts with
+                        ``TransientChunkError``, then succeeds.
+      ``stall_chunks``  ((chunk_index, seconds), ...): the chunk sleeps
+                        before staging (trips a wall-clock watchdog, no
+                        failure).
+    """
+
+    nan_metric: str | None = None
+    nan_start: int = 0
+    nan_duration: int = 1
+    fail_chunks: Tuple[Tuple[int, int], ...] = ()
+    stall_chunks: Tuple[Tuple[int, float], ...] = ()
+
+    def fault_specs(self) -> Tuple[FaultSpec, ...]:
+        """The in-episode half, as ``FaultSpec`` rows for
+        ``FaultInjectedModel``; empty when no metric poison is planned."""
+        if self.nan_metric is None:
+            return ()
+        return (nan_poison(self.nan_metric, self.nan_start,
+                           self.nan_duration),)
+
+    def host(self) -> "HostChaos | None":
+        """The host half; None when no host faults are planned."""
+        if not self.fail_chunks and not self.stall_chunks:
+            return None
+        return HostChaos(self)
+
+
+class HostChaos:
+    """The host half of a chaos plan, handed to supervised streams;
+    stateless per attempt.
+
+    ``before_chunk(ci, attempt)`` is called by ``stream_chunks`` before each
+    stage attempt: it raises ``TransientChunkError`` while ``attempt`` is
+    below the planned failure count for chunk ``ci`` (so retries clear the
+    fault deterministically), and sleeps for planned stalls. The failure
+    schedule keys on (chunk, attempt), not on the clock or randomness, so a
+    retried run's numbers are byte for byte those of a run without
+    faults."""
+
+    def __init__(self, config: ChaosConfig):
+        self.config = config
+        self._fails = {int(c): int(n) for c, n in config.fail_chunks}
+        self._stalls = {int(c): float(s) for c, s in config.stall_chunks}
+
+    def before_chunk(self, chunk_index: int, attempt: int) -> None:
+        stall = self._stalls.get(chunk_index)
+        if stall:
+            time.sleep(stall)
+        n = self._fails.get(chunk_index, 0)
+        if attempt < n:
+            raise TransientChunkError(
+                f"injected transient failure {attempt + 1}/{n} staging "
+                f"chunk {chunk_index}")

@@ -63,6 +63,30 @@ LUSTRE_STATE_METRICS = [
 ]
 
 
+def scope_mask(metric_specs: Mapping[str, MetricSpec], state_metrics,
+               scopes) -> np.ndarray:
+    """0/1 float32 visibility mask over ``state_metrics`` for ``scopes``.
+
+    A metric is visible when any of its (``&``-joined) scopes is in
+    ``scopes`` — e.g. ``ram_used_percent`` ("OSC&MDS") is visible to both an
+    OSC-scoped and an MDS-scoped observer. This is the DIAL-style
+    decentralized observation model: a client-scope tuner sees only
+    client-side (OSC) metrics and must tune from that partial state.
+    """
+    wanted = {str(s) for s in scopes}
+    known = {part for spec in metric_specs.values()
+             for part in spec.scope.split("&")}
+    unknown = wanted - known
+    if unknown:
+        raise ValueError(f"unknown metric scopes {sorted(unknown)}; "
+                         f"known: {sorted(known)}")
+    mask = np.zeros((len(state_metrics),), np.float32)
+    for i, name in enumerate(state_metrics):
+        parts = set(metric_specs[name].scope.split("&"))
+        mask[i] = 1.0 if parts & wanted else 0.0
+    return mask
+
+
 def couple_client_knobs(metrics: dict, config: Mapping, *, util: float,
                         stripe_count: int, write_frac: float,
                         seq: float) -> dict:

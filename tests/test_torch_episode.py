@@ -22,6 +22,7 @@ from repro_torch.core.ddpg import DDPGConfig
 from repro_torch.core.episode import EpisodeCarry, _encode_restart, \
     decode_restarts, run_episode_scan
 from repro_torch.core.guardrails import DeploymentPolicy
+from repro_torch.core.resilience import ResiliencePolicy
 from repro_torch.envs import LustreSimEnv, LustreSimV2
 from repro_torch.kernels import episode_learn as el
 from repro_torch.kernels import ops
@@ -177,10 +178,11 @@ def test_wrapper_refusals():
         el.episode_learn_plain(bad, spec=pspec)
     env = LustreSimEnv("seq_write").to_model_env(device="cpu")
     for kwargs, error, match in (
-            ({"policy": DeploymentPolicy(), "resilience": object()},
-             ValueError, "compose"),
-            ({"resilience": object()}, NotImplementedError, "A10b"),
-            ({"obs_mask": (1.0,) * 12}, NotImplementedError, "A10b")):
+            ({"policy": DeploymentPolicy(),
+              "resilience": ResiliencePolicy()}, ValueError, "compose"),
+            ({"resilience": ResiliencePolicy()}, ValueError, "HealthState"),
+            ({"policy": DeploymentPolicy(), "guard": object(),
+              "obs_mask": (1.0,) * 12}, ValueError, "compose")):
         with pytest.raises(error, match=match):
             run_episode_scan(env, None, None, {}, 1, **kwargs)
 

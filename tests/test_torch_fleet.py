@@ -36,13 +36,16 @@ from repro.envs import LustreSimV2 as JLustreSimV2
 from repro_torch import random as jrandom
 from repro_torch.core import (
     BatchedReplayBuffer,
+    ChunkSupervisor,
     DDPGConfig,
     DeploymentPolicy,
     FleetAgent,
     FleetTuner,
     MagpieAgent,
     ReplayBuffer,
+    ResiliencePolicy,
     Scalarizer,
+    SharingConfig,
     Tuner,
     ddpg_init,
     fleet_act,
@@ -51,7 +54,7 @@ from repro_torch.core import (
     run_fleet_episode_scan,
 )
 from repro_torch.core.ddpg import ddpg_learn_scan
-from repro_torch.envs import LustreSimEnv, LustreSimV2
+from repro_torch.envs import ChaosConfig, LustreSimEnv, LustreSimV2
 
 GAIN_BAND = 0.25
 
@@ -318,36 +321,47 @@ def _small_grid(**kw):
 
 @pytest.mark.parametrize("build,item", [
     (lambda: _small_grid(engine="host", policy=DeploymentPolicy()), "scan"),
-    (lambda: _small_grid(engine="scan", sharing=object()), "A10"),
-    (lambda: _small_grid(engine="scan", resilience=object()), "A10"),
-    (lambda: _small_grid(engine="scan", supervisor=object()), "A10"),
-    (lambda: _small_grid(engine="scan", chaos=object()), "A10"),
+    (lambda: _small_grid(engine="host",
+                         sharing=SharingConfig(shared_replay=True)), "scan"),
+    (lambda: _small_grid(engine="host", resilience=ResiliencePolicy()),
+     "scan"),
+    (lambda: _small_grid(engine="host", supervisor=ChunkSupervisor()),
+     "scan"),
+    (lambda: _small_grid(engine="scan", chaos=ChaosConfig(
+        fail_chunks=((0, 1),)).host()).run(1), "ChunkSupervisor"),
     (lambda: _small_grid(engine="scan", replay_dtype=torch.bfloat16), "A7b"),
     (lambda: _small_grid(engine="scan", devices=["cpu", "cpu"]), "A11d"),
-    (lambda: FleetAgent(DDPGConfig(12, 2), [0, 1], replay_groups=[0, 0],
-                        device="cpu"), "A10"),
-    (lambda: BatchedReplayBuffer(2, 4, 2, 1, groups=[0, 0], device="cpu"),
-     "A10"),
+    (lambda: FleetAgent(DDPGConfig(12, 2), [0, 1, 2],
+                        replay_groups=[0, 1, 0], device="cpu"),
+     "contiguous"),
+    (lambda: BatchedReplayBuffer(2, 4, 2, 1, groups=[0, 2], device="cpu"),
+     "consecutive"),
     (lambda: BatchedReplayBuffer(2, 4, 2, 1, storage_dtype=np.float16,
                                  device="cpu"), "A7b"),
-    (lambda: FleetTuner(*_parts(), cell_size=2, device="cpu"), "A10"),
-    (lambda: run_fleet_episode_scan(*_scan_parts(), obs_mask=object()),
-     "A10"),
+    (lambda: FleetTuner(*_parts(), engine="scan", cell_size=2,
+                        sharing=SharingConfig(avg_every=2), device="cpu"),
+     "whole cells"),
     (lambda: run_fleet_episode_scan(*_scan_parts(),
                                     policy=DeploymentPolicy(),
-                                    guard=object(), sharing=object()),
+                                    guard=object(), obs_mask=(1.0,) * 12),
      "compose"),
-    (lambda: run_fleet_episode_scan(*_scan_parts(), health=object()),
-     "A10"),
+    (lambda: run_fleet_episode_scan(
+        *_scan_parts(), policy=DeploymentPolicy(), guard=object(),
+        sharing=SharingConfig(shared_replay=True)), "compose"),
+    (lambda: run_fleet_episode_scan(*_scan_parts(),
+                                    resilience=ResiliencePolicy()),
+     "HealthState"),
 ], ids=["policy", "sharing", "resilience", "supervisor", "chaos", "bf16",
         "devices", "replay_groups", "groups", "storage_dtype", "cell_size",
         "obs_mask", "guard", "health"])
 def test_refusals_name_their_roadmap_item(build, item):
-    """Layers not ported name their ROADMAP item; a ``DeploymentPolicy`` on
-    the host engine, or beside experience sharing, gets the reference's
-    ``ValueError``."""
-    error = ValueError if item in ("scan", "compose") else \
-        NotImplementedError
+    """What is not ported names its ROADMAP item (``NotImplementedError``:
+    bfloat16 replay A7b, several cards A11d); everything else gets the
+    reference's ``ValueError``: a policy layer on the host engine, chaos
+    without a supervisor, replay groups that are not consecutive runs, a
+    fleet that is not whole cells, a ``DeploymentPolicy`` beside another
+    layer, resilience without a health state."""
+    error = NotImplementedError if item in ("A7b", "A11d") else ValueError
     with pytest.raises(error, match=item):
         build()
 

@@ -125,6 +125,24 @@ def test_the_guardrails_slice_is_covered():
         assert name in mods, name
 
 
+def test_the_resilience_slice_is_covered():
+    """The import checks below walk the self-healing layer, the supervised
+    chunk stream and the host chaos too."""
+    mods = _port_modules()
+    for name in ("repro_torch.core.resilience", "repro_torch.envs.faults",
+                 "repro_torch.core.episode", "repro_torch.core.service"):
+        assert name in mods, name
+
+
+def test_the_sharing_slice_is_covered():
+    """The import checks below walk experience sharing, the observation
+    scopes and the grouped replay buffer too."""
+    mods = _port_modules()
+    for name in ("repro_torch.core.sharing", "repro_torch.envs.metrics",
+                 "repro_torch.core.replay_buffer", "repro_torch.core.fleet"):
+        assert name in mods, name
+
+
 def test_no_source_file_imports_jax_or_repro():
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())

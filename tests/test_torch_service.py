@@ -35,9 +35,9 @@ from repro.core import DDPGConfig as JDDPGConfig
 from repro.core import FleetService as JFleetService
 from repro.envs import LustreSimEnv as JLustreSimEnv
 from repro.envs import LustreSimV2 as JLustreSimV2
-from repro_torch.core import DDPGConfig, DeploymentPolicy, FleetService, \
-    FleetTuner
-from repro_torch.envs import LustreSimEnv, LustreSimV2
+from repro_torch.core import ChunkSupervisor, DDPGConfig, DeploymentPolicy, \
+    FleetService, FleetTuner, ResiliencePolicy, SharingConfig
+from repro_torch.envs import ChaosConfig, LustreSimEnv, LustreSimV2
 
 W = {"throughput": 1.0}
 GAIN_BOUND = 1e-5
@@ -293,21 +293,27 @@ def test_fallback_restore_past_a_corrupted_checkpoint(tmp_path):
         _assert_same_learners(step_2._sessions[sid], back._sessions[sid])
 
 
-@pytest.mark.parametrize("layer", [
-    {"policy": DeploymentPolicy(), "resilience": object()},
-    {"sharing": object()}, {"cell_size": 2},
-    {"resilience": object()}, {"supervisor": object()},
-    {"chaos": object()}], ids=["policy", "sharing", "cell_size",
+@pytest.mark.parametrize("layer,match", [
+    ({"policy": DeploymentPolicy(), "resilience": ResiliencePolicy()},
+     "compose"),
+    ({"policy": DeploymentPolicy(),
+      "sharing": SharingConfig(shared_replay=True)}, "compose"),
+    ({"sharing": SharingConfig(shared_replay=True), "cell_size": 3},
+     "multiple of cell_size"),
+    ({"resilience": ResiliencePolicy(max_resets=-1)}, "max_resets"),
+    ({"supervisor": ChunkSupervisor(on_failure="crash")}, "on_failure"),
+    ({"chaos": ChaosConfig(fail_chunks=((0, 1),)).host()},
+     "ChunkSupervisor")], ids=["policy", "sharing", "cell_size",
                                "resilience", "supervisor", "chaos"])
-def test_policy_layers_are_refused(layer):
-    """The layers not ported name ROADMAP item A10b; a ``DeploymentPolicy``
-    beside resilience gets the reference's ``ValueError``."""
-    if "policy" in layer:
-        with pytest.raises(ValueError, match="compose"):
-            _service(**layer)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP item A10b"):
-        _service(**layer)
+def test_policy_layers_are_refused(layer, match):
+    """The reference's ``ValueError``s: a ``DeploymentPolicy`` beside
+    resilience or sharing, a lease width that splits cells, an invalid
+    resilience policy or supervisor, chaos without a supervisor (at the
+    first advance that streams chunks)."""
+    with pytest.raises(ValueError, match=match):
+        svc = _service(**layer)
+        svc.request_join("seq_write", W, 0)
+        svc.advance(1)
 
 
 def test_unknown_session_raises():

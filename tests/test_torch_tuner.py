@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DeploymentPolicy, Scalarizer, Tuner
+from repro_torch.core import DeploymentPolicy, ResiliencePolicy, \
+    Scalarizer, Tuner
 from repro_torch.envs import LustreSimEnv, LustreSimV2
 from repro_torch.kernels.ddpg_learn import ddpg_learn
 from repro_torch.kernels.episode_learn import episode_learn
@@ -60,18 +61,16 @@ def test_agent_state_dict_round_trip():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"engine": "scan"}, "ModelEnv"), ({"policy": DeploymentPolicy()}, "scan"),
-    ({"resilience": object()}, "A10"),
-    ({"observation_scopes": ("OSC",)}, "A10")])
+    ({"resilience": ResiliencePolicy()}, "scan"),
+    ({"observation_scopes": ("OSC",)}, "scan")])
 def test_scan_engine_layers_are_not_ported_yet(kwargs, item):
-    """The scan engine refuses a non-``ModelEnv`` env, and the host engine a
-    ``DeploymentPolicy``, with the reference's ``ValueError``s; the other
-    layers inside the reference's episode body (ROADMAP A10b) are not
-    ported."""
+    """The scan engine refuses a non-``ModelEnv`` env, and the host engine
+    each layer of the episode body (a ``DeploymentPolicy``, a
+    ``ResiliencePolicy``, observation scopes), with the reference's
+    ``ValueError``s."""
     env = LustreSimEnv("seq_write")
     scal = Scalarizer(weights={"throughput": 1.0}, specs=env.metric_specs)
-    error = ValueError if item in ("ModelEnv", "scan") else \
-        NotImplementedError
-    with pytest.raises(error, match=item):
+    with pytest.raises(ValueError, match=item):
         Tuner(env, scal, device="cpu", **kwargs)
 
 
